@@ -74,8 +74,8 @@ def make_arg_parser():
     p.add_argument("--useCeres", type=str2bool, nargs="?", const=True,
                    default=False)
     # the reference's per-example hand-written CUDA solver slot
-    # (CombinedSolverBase.h:67-81); here the hand-optimized whole-solve
-    # VMEM Pallas engine plays that role
+    # (CombinedSolverBase.h:67-81); parsed for CLI parity, no hand-written
+    # solver is registered
     p.add_argument("--useCUDA", "--usePallas", dest="useCUDA",
                    type=str2bool, nargs="?", const=True, default=False)
     p.add_argument("--width", type=int, default=640)
@@ -160,8 +160,7 @@ def save_solver_results(directory, suffix, iters_by_name,
     return path
 
 
-def report_final_costs(name, params, gn_cost, lm_cost, ceres_cost=None,
-                       pallas_cost=None):
+def report_final_costs(name, params, gn_cost, lm_cost, ceres_cost=None):
     """reportFinalCosts parity (SolverIteration.h:68-86)."""
     print(f"{name} final costs:")
     if params.useOpt:
@@ -170,8 +169,6 @@ def report_final_costs(name, params, gn_cost, lm_cost, ceres_cost=None,
         print(f"Opt(LM): {lm_cost}")
     if params.useCeres and ceres_cost is not None:
         print(f"Ceres: {ceres_cost}")
-    if getattr(params, "useCUDA", False) and pallas_cost is not None:
-        print(f"Pallas(VMEM): {pallas_cost}")
 
 
 class CombinedSolver:
@@ -183,7 +180,7 @@ class CombinedSolver:
     device buffers in place).
     """
 
-    def __init__(self, params: CombinedSolverParameters, backend="tpu",
+    def __init__(self, params: CombinedSolverParameters, backend=None,
                  numthreads=1):
         import opt_tpu
 
@@ -229,33 +226,10 @@ class CombinedSolver:
         if p.useOptLM:
             self._add(dims, energy, "LMGPU", "Opt(LM)")
         if p.useCUDA:
-            # hand-optimized solver slot ("CUDA" in the reference,
-            # CombinedSolverBase.h:67-81): the whole-solve-in-VMEM Pallas
-            # engine if the problem fits on-chip, else the fully-streamed
-            # HBM-state engine for larger-than-VMEM grids
-            from opt_tpu.ops import stream3d, stream_solver, vmem_solver
-
-            problem = self.state.problem_define(energy, "gaussNewtonGPU")
-            plan = self.state.problem_plan(problem, dims)
-            if vmem_solver.supports(plan):
-                self.m_solverInfo.append(
-                    {"plan": plan, "name": "Pallas(VMEM)", "iters": [],
-                     "pallas": "vmem"}
-                )
-            elif stream_solver.supports_hbm(plan):
-                self.m_solverInfo.append(
-                    {"plan": plan, "name": "Pallas(StreamHBM)",
-                     "iters": [], "pallas": "stream_hbm"}
-                )
-            elif stream3d.supports3d(plan):
-                self.m_solverInfo.append(
-                    {"plan": plan, "name": "Pallas(Stream3D)",
-                     "iters": [], "pallas": "stream3d"}
-                )
-            else:
-                print("Pallas: problem not eligible (graph domain, "
-                      "sampled images, f64, or unaligned sizes); "
-                      "skipping the hand-optimized solver")
+            # the reference's hand-written CUDA solver slot
+            # (CombinedSolverBase.h:67-81)
+            print("useCUDA: no hand-written solver is registered; "
+                  "Opt solvers only")
         if p.useCeres:
             # outside baseline in the Ceres role (CeresSolverBase parity):
             # generic scipy TRF/LSMR over the same residual program
@@ -317,30 +291,6 @@ class CombinedSolver:
         plan.set_solver_parameter("lIterations", p.linearIter)
         for k, v in self.m_solverParams.items():
             plan.set_solver_parameter(k, v)
-        if s.get("pallas"):
-            if "engine" not in s:
-                if s["pallas"] == "stream_hbm":
-                    from opt_tpu.ops.stream_solver import StreamSolverHBM
-
-                    s["engine"] = StreamSolverHBM(plan)
-                elif s["pallas"] == "stream3d":
-                    from opt_tpu.ops.stream3d import StreamSolver3D
-
-                    s["engine"] = StreamSolver3D(plan)
-                else:
-                    from opt_tpu.ops.vmem_solver import VmemSolver
-
-                    s["engine"] = VmemSolver(plan)
-            t0 = time.perf_counter()
-            out = s["engine"].solve(self.m_problemParams)
-            ms = (time.perf_counter() - t0) * 1e3
-            s["iters"].append(SolverIteration(out["final_cost"], ms))
-            s["final_cost"] = self.final_cost = out["final_cost"]
-            print(f"final cost={out['final_cost']:.16f}")
-            for n, v in out["x"].items():
-                if n in self.m_problemParams:
-                    self.m_problemParams[n] = v
-            return
         plan.init(self.m_problemParams)
         while True:
             t0 = time.perf_counter()

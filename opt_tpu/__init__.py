@@ -1,11 +1,11 @@
-"""opt_tpu: a TPU-native nonlinear least-squares framework.
+"""opt_tpu: a JAX nonlinear least-squares framework.
 
 A from-scratch JAX/XLA re-design of the capabilities of Opt (optlang.org;
 reference fork multigrid101/Opt): users declare energy functions over
 image-grid or graph-structured unknowns in a small embedded DSL, and the
 framework produces a shape-specialized Gauss-Newton or Levenberg-Marquardt
 solver with a matrix-free preconditioned-conjugate-gradient inner loop,
-compiled by XLA for TPU (and identically runnable on CPU).
+compiled by XLA for the GPU (and identically runnable on CPU).
 
 See SURVEY.md at the repo root for the structural map of the reference this
 rebuild tracks.

@@ -149,39 +149,6 @@ def shift_read(a, offsets):
     return padded[slices]
 
 
-def shift_read_roll(a, offsets):
-    """shift_read computed with roll + iota masks instead of pad + slice.
-
-    Same values; used inside Pallas kernels where Mosaic cannot type the
-    unaligned intermediates that jnp.pad / jnp.roll's slice+concat produce
-    (opt_tpu/ops/vmem_solver.py).  Uses the Mosaic-native pltpu.roll when
-    tracing inside a Pallas kernel."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    def _roll(v, shift, axis):
-        try:
-            return pltpu.roll(v, shift % v.shape[axis], axis)
-        except Exception:
-            return jnp.roll(v, shift, axis)
-
-    nd = a.ndim
-    out = a
-    for axis in range(nd):
-        o = int(offsets[nd - 1 - axis])
-        if o == 0:
-            continue
-        n = a.shape[axis]
-        out = _roll(out, -o, axis)
-        coord = jax.lax.broadcasted_iota(jnp.int32, out.shape, axis)
-        valid = (coord < n - o) if o > 0 else (coord >= -o)
-        out = jnp.where(valid, out, jnp.zeros((), out.dtype))
-    return out
-
-
-def scatter_shift_roll(a, offsets):
-    return shift_read_roll(a, tuple(-int(o) for o in offsets))
-
-
 def scatter_shift(a, offsets):
     """Adjoint of shift_read: out[p] = a[p - offset], zero outside.
 
@@ -194,10 +161,10 @@ def bounds_mask(shape, mins, maxs, real_shape=None, coord_offset=None):
     """InBounds mask over the grid (genbounds, o.t:585-607).
 
     Computed with iota + compares (no materialized constants), so it works
-    identically under jit, inside lax loops, and inside Pallas kernels.
-    real_shape: when arrays are padded for hardware alignment (e.g. the
-    VMEM Pallas solver pads the lane dim to 128), bounds semantics follow
-    the REAL domain sizes.
+    identically under jit and inside lax loops.
+    real_shape: when arrays are a window of a larger domain (the halo
+    path's extended local blocks), bounds semantics follow the REAL
+    domain sizes.
     coord_offset: per-axis GLOBAL coordinate of the array's [0,...] corner
     (possibly traced, e.g. shard_map row offsets); bounds then test global
     positions against the real (global) sizes."""
@@ -237,9 +204,7 @@ def index_coords(shape, dim, shift, dtype, coord_offset=None):
     nd = len(shape)
     axis = nd - 1 - dim
     size = shape[axis]
-    # integer iota + convert: Mosaic rejects float-result tpu.iota, and
-    # Index()-using energies (SFS) must lower inside the VMEM
-    # whole-solve kernel; identical values in f32/f64 for any real size
+    # integer iota + convert: identical values in f32/f64 for any size
     coord = (jnp.arange(size, dtype=jnp.int32).astype(dtype)
              + jnp.asarray(shift, dtype))
     if coord_offset is not None:
@@ -322,20 +287,19 @@ class EvalContext:
     """
 
     def __init__(self, domain, shape, images, params, graph_indices, dtype,
-                 real_shape=None, shift_impl=None, graph_banding=None,
+                 real_shape=None, graph_banding=None,
                  coord_offset=None, unknown_names=None):
         self.domain = domain
         self.shape = shape  # grid spatial shape, or (E,) for graphs
         self.real_shape = real_shape  # real sizes when arrays are padded
         # per-axis global coordinate of array [0,..] (shard_map halo path)
         self.coord_offset = coord_offset
-        self.shift_impl = shift_impl or shift_read
         self.images = images
         self.params = params
         self.graph_indices = graph_indices
         # gname -> banded-engine device arrays (ops/graph_banded.py);
-        # when set for a graph, slot gathers run as MXU one-hot matmuls
-        # over the padded (n_vblk*eb,) edge layout
+        # when set for a graph, slot gathers run as one-hot matmuls over
+        # the padded (n_vblk*eb,) edge layout
         self.graph_banding = graph_banding or {}
         # names of unknown images: slot gathers keep unknowns in their own
         # block so the tangent/transpose gathers under jax.linearize touch
@@ -359,10 +323,8 @@ class EvalContext:
         # shared across every shifted read in this context
         self._computed_cache = {}
         # per-(graph, slot) batched gathers: one wide take per slot instead
-        # of one per (image, channel) read.  XLA TPU row-gathers cost
-        # ~0.3 ms each at 60k rows, so the op count dominates graph-domain
-        # performance; batching gives one gather (and one scatter in the
-        # transpose) per vertex slot.
+        # of one per (image, channel) read, so one gather (and one scatter
+        # in the transpose) per vertex slot.
         self._slot_cache = {}
 
     def _slot_gather(self, gname, slot, n_verts):
@@ -373,7 +335,7 @@ class EvalContext:
         cheap slices of a gathered block.  The split matters under
         jax.linearize: with one mixed block the tangent/transpose gathers
         inside the PCG loop carry materialized zero channels for every
-        constant (2x MXU/gather work); split, the constant block has no
+        constant (2x gather work); split, the constant block has no
         tangent at all.
 
         Banded mode gathers ALL slots eagerly in one stacked one-hot dot
@@ -424,15 +386,10 @@ class EvalContext:
             if ov is not None:
                 return ov
         img = self.images[access.image.name]
-        if isinstance(img, (list, tuple)):
-            # channel-plane representation (Pallas kernels: Mosaic cannot
-            # slice non-zero channels out of channel-last arrays)
-            chan = img[access.channel]
-        else:
-            chan = img[..., access.channel]
+        chan = img[..., access.channel]
         idx = access.index
         if isinstance(idx, E.Offset):
-            return self.shift_impl(chan, idx.data)
+            return shift_read(chan, idx.data)
         # graph gather: one batched take per slot block, then slice the
         # channel.  Banded rows are BLOCKED (n_vblk, eb, C) -- the whole
         # graph residual evaluation runs in that 2-D tiling (matching
@@ -507,7 +464,7 @@ class EvalContext:
         buf = bufs[e.channel]
         if all(o == 0 for o in e.offset):
             return buf
-        return self.shift_impl(buf, e.offset)
+        return shift_read(buf, e.offset)
 
     def _eval_sampled(self, e: E.SampledAccess):
         sim = e.simage

@@ -31,23 +31,16 @@ from .terms import classify_terms, classify_excludes
 
 
 class ProblemFunctions:
-    def __init__(self, spec, dtype, real_shapes=None, kernel_safe=False):
+    def __init__(self, spec, dtype, real_shapes=None):
         self.spec = spec
         self.dtype = dtype
-        # ispace key -> real spatial shape, when the spec's dims are padded
-        # for hardware alignment (opt_tpu/ops/vmem_solver.py)
+        # ispace key -> real (global) spatial shape, when the spec's dims
+        # are a halo-extended local window (parallel/halo.py)
         self.real_shapes = real_shapes or {}
         # per-axis GLOBAL coordinate of local array [0,..] (possibly
         # traced), set by the shard_map halo path (parallel/halo.py) so
         # bounds/Index/real-domain tests use global positions
         self.coord_offsets = None
-        # roll-based shifts for Pallas-kernel execution (Mosaic cannot
-        # type jnp.pad's unaligned intermediates)
-        self.kernel_safe = kernel_safe
-        self._shift = ev.shift_read_roll if kernel_safe else ev.shift_read
-        self._scatter = (
-            ev.scatter_shift_roll if kernel_safe else ev.scatter_shift
-        )
         self.groups = classify_terms(spec)
         self.excludes = classify_excludes(spec)  # ispace key -> exprs
         self.use_preconditioner = spec.use_preconditioner
@@ -104,7 +97,6 @@ class ProblemFunctions:
             graph_indices=data.get("graph_indices", {}),
             dtype=self.dtype,
             real_shape=real,
-            shift_impl=self._shift,
             graph_banding=data.get("graph_banding"),
             coord_offset=self.coord_offsets,
             unknown_names=self.unknowns,
@@ -130,7 +122,6 @@ class ProblemFunctions:
             graph_indices=data.get("graph_indices", {}),
             dtype=self.dtype,
             real_shape=self.real_shapes.get(ispace_key),
-            shift_impl=self._shift,
             coord_offset=self.coord_offsets,
         )
         m = None
@@ -147,8 +138,7 @@ class ProblemFunctions:
         return m
 
     def unknown_masks(self, x, data):
-        """Per-unknown 'excluded' masks ((*spatial, 1), or (*spatial) in
-        channel-plane/kernel_safe mode), or None."""
+        """Per-unknown 'excluded' masks of shape (*spatial, 1), or None."""
         cache = {}
         out = {}
         for n, im in self.unknowns.items():
@@ -159,15 +149,13 @@ class ProblemFunctions:
             if m is None:
                 out[n] = None
             else:
-                out[n] = m if self.kernel_safe else m[..., None]
+                out[n] = m[..., None]
         return out
 
     def mask_unknown_tree(self, tree, masks):
         def apply(m, v):
             if m is None:
                 return v
-            if isinstance(v, (list, tuple)):
-                return [jnp.where(m, 0.0, p) for p in v]
             return jnp.where(m, 0.0, v)
 
         return {n: apply(masks[n], v) for n, v in tree.items()}
@@ -198,10 +186,7 @@ class ProblemFunctions:
                 m = self.exclude_mask(g.ispace.key(), x, data)
                 if m is not None:
                     fields = [jnp.where(m, 0.0, f) for f in fields]
-            if self.kernel_safe:
-                out.append(fields)  # list of planes (no channel stacking)
-            else:
-                out.append(jnp.stack(fields))
+            out.append(jnp.stack(fields))
         return out
 
     def residuals_solve(self, x, data):
@@ -223,11 +208,8 @@ class ProblemFunctions:
             if g.kind == "centered":
                 m = self.exclude_mask(g.ispace.key(), x, data)
                 if m is not None:
-                    mask_nd = (
-                        m if self.kernel_safe else m[None]
-                    )
                     f = jax.tree_util.tree_map(
-                        lambda v: jnp.where(mask_nd, 0.0, v), f
+                        lambda v: jnp.where(m[None], 0.0, v), f
                     )
             for leaf in jax.tree_util.tree_leaves(f):
                 total = total + 0.5 * jnp.sum(leaf * leaf)
@@ -378,27 +360,15 @@ class ProblemFunctions:
                                          self.coord_offsets)
                 if rm is not None:
                     fields = [jnp.where(rm, f, 0.0) for f in fields]
-            if self.kernel_safe:
-                return fields
             return jnp.stack(fields)
 
         all_vals = dvals + tvals
         _, jvp_fn = jax.linearize(gfun, all_vals)
         partials = [jvp_fn(t) for t in one_hots(all_vals)]
 
-        def padd(a, b):
-            if isinstance(a, (list, tuple)):
-                return [x + y for x, y in zip(a, b)]
-            return a + b
-
-        def pscale(fld, s):
-            if isinstance(fld, (list, tuple)):
-                return [f * s for f in fld]
-            return fld * s
-
         totals = {}
         for k, fld in zip(dkeys, partials[:n_d]):
-            totals[k] = padd(totals[k], fld) if k in totals else fld
+            totals[k] = totals[k] + fld if k in totals else fld
         for ((_tag, cname, ch, p), _node), gt in zip(
                 tap_list, partials[n_d:]):
             for a in buf_leaves[cname].values():
@@ -406,12 +376,11 @@ class ProblemFunctions:
                 # dr/d(u at p+w) accumulates G_p * shift_p(dB_w)
                 dfld = dB[(cname, ch, a.key())]
                 if any(p):
-                    dfld = self._shift(dfld, p)
+                    dfld = ev.shift_read(dfld, p)
                 ckey = (a.image.name, a.index.shift(p), a.channel)
-                contrib = pscale(gt, dfld)
+                contrib = gt * dfld
                 totals[ckey] = (
-                    padd(totals[ckey], contrib) if ckey in totals
-                    else contrib
+                    totals[ckey] + contrib if ckey in totals else contrib
                 )
         if any(a.key() not in totals for a in g.unknown_leaves):
             return None  # structure mismatch: fall back to inline
@@ -469,16 +438,12 @@ class ProblemFunctions:
                     if band is not None:
                         pm = band.pad_mask
                         fields = [jnp.where(pm, f, 0.0) for f in fields]
-                if self.kernel_safe:
-                    return fields
                 return jnp.stack(fields)
 
             _, jvp_fn = jax.linearize(gfun, leaf_vals)
-            # NOTE: one sequential jvp per leaf beats a vmapped batch
-            # over basis tangents (measured on SFS 60x10 @ v5e: 72.7 ms
-            # sequential vs 92.0 batched) -- XLA folds the zero-tangent
-            # terms of each one-hot call, while the batched form pays
-            # stacked-basis materialization and batched layouts.
+            # one sequential jvp per leaf: XLA folds the zero-tangent
+            # terms of each one-hot call, where a vmapped batch over basis
+            # tangents would materialize the stacked basis
             D = []
             for i in range(len(leaves)):
                 tangents = tuple(
@@ -493,9 +458,7 @@ class ProblemFunctions:
         unknowns (inverse shift for grids / index-add for graphs).
 
         Channel accumulation uses per-channel lists + a final stack rather
-        than .at[..., c].add so the centered path contains no scatter ops
-        (Pallas TPU has no scatter lowering; this keeps the whole solver
-        runnable inside the VMEM kernel, opt_tpu/ops/vmem_solver.py)."""
+        than .at[..., c].add so the centered path contains no scatter ops."""
         acc = {
             n: [jnp.zeros(s[:-1], dtype=self.dtype) for _ in range(s[-1])]
             for n, s in self.unknown_shapes.items()
@@ -504,17 +467,14 @@ class ProblemFunctions:
         # graph-side squared partials are batched per (graph, slot): all
         # leaf channels sharing a vertex slot stack into one (E, K) column
         # block scattered in ONE banded_scatter / segment_sum, instead of
-        # K separate C=1 scatters (docs/ROUND3_TODO.md #1)
+        # K separate C=1 scatters
         pending = {}  # (gname, slot) -> list of (img_name, channel, d2)
         for g, leaves, D in self.leaf_partials(x, data):
             for a, d in zip(leaves, D):
-                if isinstance(d, (list, tuple)):
-                    d2 = sum(p * p for p in d)
-                else:
-                    d2 = jnp.sum(d * d, axis=0)
+                d2 = jnp.sum(d * d, axis=0)
                 img = a.image
                 if isinstance(a.index, E.Offset):
-                    contrib = self._scatter(d2, a.index.data)
+                    contrib = ev.scatter_shift(d2, a.index.data)
                     acc[img.name][a.channel] = (
                         acc[img.name][a.channel] + contrib
                     )
@@ -538,8 +498,6 @@ class ProblemFunctions:
                 )
             for k, (img_name, chan, _) in enumerate(items):
                 acc[img_name][chan] = acc[img_name][chan] + out[:, k]
-        if self.kernel_safe:
-            return {n: list(chans) for n, chans in acc.items()}
         return {
             n: jnp.stack(chans, axis=-1) for n, chans in acc.items()
         }

@@ -1,6 +1,6 @@
 /* Native host-side runtime components.
  *
- * TPU-native equivalents of the reference's C/C++ host code paths:
+ * Equivalents of the reference's C/C++ host code paths:
  *  - PNG scanline unfiltering (reference: LodePNG via mLib, used by every
  *    image example) -- the decode hot loop;
  *  - mesh 1-ring neighbor-list construction (reference:

@@ -1,12 +1,11 @@
-"""Banded one-hot graph gather/scatter engine (MXU-native).
+"""Banded one-hot graph gather/scatter engine (opt-in, graph_mode="banded").
 
-TPU XLA row-gathers and segment-sum scatters cost ~250 us each at 60k
-rows (~4 ns/row) -- they serialize on the sparse-index path and dominate
-graph-domain solves (arap ~1.36 ms per PCG iteration in round 1;
-see docs/ROUND3_TODO.md).  This module replaces them with dense block matmuls the MXU
-executes at full rate, playing the role of the reference's hand-written
-atomic scatter kernels (reference: API/src/backend_cuda.t:366-445 and
-examples/arap_mesh_deformation/src/WarpingSolver.cu).
+Replaces the take/segment_sum graph gathers and scatters with dense block
+matmuls, in the role of the reference's hand-written atomic scatter
+kernels (reference: API/src/backend_cuda.t:366-445 and
+examples/arap_mesh_deformation/src/WarpingSolver.cu).  The default
+graph_mode="auto" does not select it: XLA's native gather and
+segment_sum are faster on a GPU (PERF.md).
 
 Scheme
 ------
@@ -17,22 +16,18 @@ Scheme
    edge in block b lies in the 3-block window [(b-1)VB, (b+2)VB).
 3. Gather = (EB x 3VB) one-hot  @  (3VB x C) window, generated on the fly
    from an iota comparison; scatter is the transposed matmul, with the
-   3-block window overlap-added back.  Both run on the MXU.
+   3-block window overlap-added back.  Both are bf16 matmuls.
 4. Exactness: bf16 matmuls would round the values, so each f32 operand is
    split into three scaled bf16 planes packed along the channel axis
    (hi + mid/2^8 + lo/2^16) and recombined after the matmul -- gathers are
-   bit-exact, scatters accumulate in the MXU's f32 accumulator (same error
-   class as f32 atomics).  `optimization_barrier` guards stop XLA's
-   excess-precision pass from folding the f32->bf16->f32 round-trips away
-   (measured: without barriers the split collapses to plain bf16).
+   bit-exact, scatters accumulate in the matmul's f32 accumulator (same
+   error class as f32 atomics).  The split truncates through integer bits
+   (_trunc_bf16) so XLA's excess-precision pass cannot fold the
+   f32->bf16->f32 round-trips away.
 
 `linear_call` pairs gather/scatter as each other's transposes, so the
 solver's `jax.linearize` / `jax.linear_transpose` J/J^T machinery routes
 through the banded kernels in both directions.
-
-Measured (v5e, 10370-vertex / 62208-edge subdivided armadillo, C=8):
-full JtJp-style apply (2 gathers + 2 scatters) 189 us vs 1067 us for
-take/segment_sum -- 5.7x; gathers bit-exact vs jnp.take.
 """
 
 from __future__ import annotations
@@ -44,15 +39,14 @@ import jax
 import jax.numpy as jnp
 from jax.custom_derivatives import linear_call
 
-LANE = 128
-SUBLANE = 8
+VERTEX_BLOCK = 128
+EDGE_ALIGN = 8
 
 # env knobs read ONCE at import: a trace-time read would bake the value
 # into cached jitted programs, so later changes would be silently ignored
-# anyway (advisor r2) -- reading here makes that explicit and keeps
+# anyway -- reading here makes that explicit and keeps
 # retraces of identical programs producing identical HLO
 _ONEHOT_TAG_MODE = os.environ.get("OPT_TPU_ONEHOT_TAG", "static")
-_ONEHOT_IMPL = os.environ.get("OPT_TPU_ONEHOT", "xla")
 
 
 def _roundup(v, m):
@@ -78,7 +72,7 @@ class GraphBandPlan:
         at all); only the other slots pay the one-hot matmul.  Chosen when
         (n_slots-1) * n_verts * deg one-hot rows beat the balanced
         n_slots * n_vblk * eb (true for near-regular meshes: for a
-        symmetrized triangle mesh it halves the MXU work of a 2-slot
+        symmetrized triangle mesh it halves the one-hot work of a 2-slot
         J^T J apply).
     """
 
@@ -167,15 +161,15 @@ def plan_vertex_banding(graphs_np, n_verts, max_bandwidth=2048,
             n_slots = len(slots)
             n_e = len(next(iter(slots.values())))
             # take/segment_sum cost of this graph in one-hot-equivalent
-            # units (the measured crossover): charged when the graph
-            # falls back, so RCM-vs-identity totals compare like for
-            # like even when each ordering bands a different subset
-            # (advisor r2: comparing banded-only work could prefer the
-            # ordering that simply banded fewer graphs)
+            # units: charged when the graph falls back, so
+            # RCM-vs-identity totals compare like for like even when each
+            # ordering bands a different subset (comparing banded-only
+            # work could prefer the ordering that simply banded fewer
+            # graphs)
             take_work = MAX_ONEHOT_PER_EDGE * n_slots * n_e
             cands = []
             if allow_window and bw_ <= max_bandwidth and forced != "tiled":
-                vb_w = max(LANE, _roundup(max(bw_, 1), LANE))
+                vb_w = max(VERTEX_BLOCK, _roundup(max(bw_, 1), VERTEX_BLOCK))
                 n_vblk_w = (n_verts + vb_w - 1) // vb_w
                 p = _plan_graph_layout(
                     gname, slots, inv_, n_verts, vb_w, n_vblk_w, forced
@@ -190,8 +184,8 @@ def plan_vertex_banding(graphs_np, n_verts, max_bandwidth=2048,
                 continue
             work, best = min(cands, key=lambda c: c[0])
             # beyond ~MAX_ONEHOT_PER_EDGE one-hot elements per
-            # (edge, slot) the VPU generation cost crosses
-            # take/segment_sum's ~4 ns/row; skip unless forced
+            # (edge, slot) one-hot generation costs more than
+            # take/segment_sum; skip unless forced
             if not force and work > take_work:
                 total += take_work
                 continue
@@ -214,7 +208,7 @@ def plan_vertex_banding(graphs_np, n_verts, max_bandwidth=2048,
             plans, perm, inv = plans_id, ident, ident
     if not plans:
         return None
-    return VertexBanding(n_verts, perm, inv, LANE, bw, plans)
+    return VertexBanding(n_verts, perm, inv, VERTEX_BLOCK, bw, plans)
 
 
 # max vertex blocks per edge-tile window -- a MEMORY bound on the take'd
@@ -222,32 +216,24 @@ def plan_vertex_banding(graphs_np, n_verts, max_bandwidth=2048,
 # comparison in plan_vertex_banding decides tiled-vs-window-vs-nothing
 MAX_WINDOW_BLOCKS = 64
 
-# one-hot elements per (edge, slot) at which banding loses to take.
-# Measured anchors (v5e, arap tri-grid 10k): one-hot generation streams
-# at ~0.5 T elem/s (1.9 ps/elem) while take/segment_sum costs ~4.3 ns
-# per row -> crossover ~2200 elems/edge
+# one-hot elements per (edge, slot) past which the planner prefers take
+# (a work-model bound, not measured on the current device)
 MAX_ONEHOT_PER_EDGE = 2048
 
 
 # one-hot-equivalent cost units per COARSE window element of the tiled
-# layout's take'd K-block windows (per sweep direction).  One-hot
-# generation streams ~1.9 ps/elem; a window element is a multi-channel
-# f32 row-chunk materialized to HBM and read back (~10 ps x C~3-8 plus
-# the sparse-row take), so ~40 one-hot-equiv units each.  Calibrated
-# against the r2 boundary anchor (30k-vertex band-15 + chords, work/edge
-# 2097: forced tiled 2692 ms vs take 2274 ms -- the un-penalized model
-# called them equal; with eb~192 this term adds ~20%, matching).
+# layout's take'd K-block windows (per sweep direction): a window element
+# is a multi-channel f32 row-chunk materialized to device memory and read
+# back, plus the sparse-row take
 WINDOW_COST_PER_ELEM = 40
 
 
 def _onehot_work(p):
-    """One-hot-equivalent work units per full gather+scatter sweep -- the
-    VPU-bound cost that dominates the engine (profiled: one-hot iota-
-    compare generation, not the MXU dot, bounds each fusion).  The tiled
-    layout additionally charges its coarse K-block window HBM traffic
-    (take + materialize + read-back, once per direction; slots share the
-    window via slots_gather), which the r2 model undercounted
-    (docs/ROUND3_TODO.md #6)."""
+    """One-hot-equivalent work units per full gather+scatter sweep (one-hot
+    iota-compare generation bounds each fusion).  The tiled layout
+    additionally charges its coarse K-block window memory traffic (take +
+    materialize + read-back, once per direction; slots share the window
+    via slots_gather)."""
     n_slots = len(p.loc)
     if p.layout == "ell":
         window = 3 * p.vb
@@ -266,20 +252,12 @@ def _plan_graph_tiled(gname, slots, inv, n_verts):
     slot-0 vertex into per-vertex-block tiles as in 'balanced', but each
     tile carries an explicit LIST of the vertex blocks its endpoints
     touch (wblk): the gather first `take`s those whole blocks (coarse,
-    amortized) and then one-hots within the K-block window (fine, MXU).
+    amortized) and then one-hots within the K-block window (fine).
     Returns None when some tile touches more than MAX_WINDOW_BLOCKS
-    blocks (take/segment_sum or a window layout wins there).
-
-    Measured (v5e, 30k-vertex band-15 graph + random chords, arap
-    8x100): at work/edge 2097 (the gate boundary) forced tiled ran
-    2692 ms vs take 2274 ms, and a lower-chord case was similar -- the
-    one-hot work model undercounts the K-block window HBM traffic
-    (K*vb cols materialized per tile per direction) and XLA compile
-    takes ~2 min at n_eblk=235.  The MAX_ONEHOT_PER_EDGE gate therefore
-    correctly keeps tiled OFF in auto mode for chord-heavy graphs; it
-    exists for block-local graphs (cluster + sparse inter-cluster
-    links) where K stays ~3-5, and for forced banded mode."""
-    vb = LANE
+    blocks (take/segment_sum or a window layout wins there).  Meant for
+    block-local graphs (cluster + sparse inter-cluster links) where K
+    stays small."""
+    vb = VERTEX_BLOCK
     n_vblk = (n_verts + vb - 1) // vb
     snames = list(slots)
     perm_slots = {sn: inv[np.asarray(slots[sn], np.int64)]
@@ -291,7 +269,7 @@ def _plan_graph_tiled(gname, slots, inv, n_verts):
     key_blk = sorted_slots[snames[0]] // vb
     starts = np.searchsorted(key_blk, np.arange(n_vblk))
     ends = np.searchsorted(key_blk, np.arange(1, n_vblk + 1))
-    eb = int(_roundup(max(int((ends - starts).max()), 1), SUBLANE))
+    eb = int(_roundup(max(int((ends - starts).max()), 1), EDGE_ALIGN))
 
     # per-tile union of touched vertex blocks (all slots)
     windows = []
@@ -343,7 +321,7 @@ def _plan_graph_layout(gname, slots, inv, n_verts, vb, n_vblk,
     key0 = s0[order_bal]
     starts = np.searchsorted(key0, np.arange(n_vblk) * vb)
     ends = np.searchsorted(key0, np.arange(1, n_vblk + 1) * vb)
-    eb_bal = int(_roundup(max(int((ends - starts).max()), 1), SUBLANE))
+    eb_bal = int(_roundup(max(int((ends - starts).max()), 1), EDGE_ALIGN))
     work_bal = len(snames) * n_vblk * eb_bal
 
     # best ELL candidate: one-hot work = (n_slots-1) * n_vblk * vb * deg
@@ -455,9 +433,7 @@ def _trunc_bf16(x):
     XLA excess-precision pass cannot fold this back to f32 the way it
     folds convert(f32->bf16->f32) round-trips, so no optimization_barrier
     is needed -- and without barriers the whole split fuses into the
-    one-hot dot's operand instead of materializing three planes (the
-    barrier version measured ~40 extra us/PCG-iteration of fusion
-    boundaries on the flagship arap solve)."""
+    one-hot dot's operand instead of materializing three planes."""
     xi = jax.lax.bitcast_convert_type(x, jnp.uint32)
     return jax.lax.bitcast_convert_type(
         (xi >> jnp.uint32(16)).astype(jnp.uint16), jnp.bfloat16
@@ -497,8 +473,8 @@ def reset_onehot_tags():
     """Reset the one-hot tag counter.  Called at the top of every
     top-level traced solver program (runtime/api.py wraps the plan fns)
     so identical programs trace to identical tag sequences -> identical
-    HLO, keeping XLA's persistent compilation cache effective (advisor
-    r2: an ever-advancing global counter made every retrace unique)."""
+    HLO, keeping XLA's persistent compilation cache effective (an
+    ever-advancing global counter would make every retrace unique)."""
     _ONEHOT_TAG[0] = 0
 
 
@@ -509,9 +485,9 @@ def _next_tag(operand):
     XLA CSEs identical one-hot subexpressions; a one-hot with two fusion
     consumers (a gather dot and a scatter dot on the same loc, or the
     primal and tangent gathers sharing one linear_call trace) gets
-    MATERIALIZED to HBM, and every banded op then pays a ~48 MB read
-    (measured ~59 us/op vs ~21 us when each dot fuses its own
-    iota-compare).  Comparing (loc - tag) == (iota - tag) is the same
+    MATERIALIZED to device memory, and every banded op then pays a read
+    of the whole one-hot instead of fusing its own iota-compare.
+    Comparing (loc - tag) == (iota - tag) is the same
     one-hot but a distinct expression; deriving tag from the operand
     (0 * operand[0,0] behind an optimization_barrier, so it cannot fold
     to a shared constant) keeps it unique per invocation.  The counter
@@ -526,27 +502,11 @@ def _next_tag(operand):
     return _ONEHOT_TAG[0]
 
 
-def _use_pallas_onehot():
-    """OPT_TPU_ONEHOT=pallas routes one-hot matmuls through the Pallas
-    kernels (ops/onehot_pallas.py).  Off by default: measured ~68 us per
-    gather vs ~21 us for XLA's own fused iota-compare+dot once CSE
-    materialization is defeated (_next_tag); kept as the measured record
-    of the in-VMEM one-hot design."""
-    return _ONEHOT_IMPL == "pallas"
-
-
 def _gather_impl(loc, values, *, vb, n_vblk, eb, n_verts):
     c = values.shape[-1]
     pb = jnp.pad(values, ((0, n_vblk * vb - n_verts), (0, 0)))
     pb = pb.reshape(n_vblk, vb, c)
     ws = _split3(_windows(pb))
-
-    if _use_pallas_onehot():
-        from .onehot_pallas import onehot_gather_blocks
-
-        out = onehot_gather_blocks(loc, ws)
-        return _recomb(out, c)
-
     t = _next_tag(values)
 
     def blk(locb, wb):
@@ -564,24 +524,18 @@ def _gather_impl(loc, values, *, vb, n_vblk, eb, n_verts):
 def _scatter_impl(loc, edges, *, vb, n_vblk, eb, n_verts):
     c = edges.shape[-1]
     es = _split3(edges)
+    t = _next_tag(edges)
 
-    if _use_pallas_onehot():
-        from .onehot_pallas import onehot_scatter_windows
+    def blk(locb, ebk):
+        oh = ((locb[:, None] - t) ==
+              (jax.lax.broadcasted_iota(jnp.int32, (eb, 3 * vb), 1) - t)
+              ).astype(jnp.bfloat16)
+        out = jax.lax.dot_general(
+            oh, ebk, (((0,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)
+        return _recomb(out, c)
 
-        w = _recomb(onehot_scatter_windows(loc, es, 3 * vb), c)
-    else:
-        t = _next_tag(edges)
-
-        def blk(locb, ebk):
-            oh = ((locb[:, None] - t) ==
-                  (jax.lax.broadcasted_iota(jnp.int32, (eb, 3 * vb), 1) - t)
-                  ).astype(jnp.bfloat16)
-            out = jax.lax.dot_general(
-                oh, ebk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            return _recomb(out, c)
-
-        w = jax.vmap(blk)(loc, es)  # (n_vblk, 3VB, C) window contributions
+    w = jax.vmap(blk)(loc, es)  # (n_vblk, 3VB, C) window contributions
     z = jnp.zeros_like(w[:1, :vb])
     mid = w[:, vb:2 * vb]
     from_up = jnp.concatenate([w[1:, :vb], z], 0)
@@ -594,8 +548,7 @@ def banded_gather(loc, values, *, vb, n_vblk, eb, n_verts):
 
     Edge-domain arrays stay in the blocked 2-D tiling everywhere (the
     evaluator computes graph residual fields as (n_vblk, eb)); flattening
-    to (n_vblk*eb, C) forces a sublane->lane relayout copy that profiled
-    at ~45 us x2 per PCG iteration on the flagship arap solve.
+    to (n_vblk*eb, C) would force a relayout copy per gather.
 
     Bit-exact vs jnp.take; pad rows (loc == -1) come back zero.  Linear in
     `values`, transposing to `banded_scatter`."""
@@ -613,7 +566,7 @@ def banded_gather(loc, values, *, vb, n_vblk, eb, n_verts):
 def banded_scatter(loc, edges, *, vb, n_vblk, eb, n_verts):
     """BLOCKED padded edge rows (n_vblk, eb, C) f32 -> summed (n_verts, C).
 
-    Duplicate targets accumulate in the MXU's f32 accumulator (same error
+    Duplicate targets accumulate in the matmul's f32 accumulator (same error
     class as f32 atomic adds).  Pad rows are dropped (one-hot of -1 is the
     zero row).  Linear in `edges`, transposing to `banded_gather`."""
     meta = dict(vb=vb, n_vblk=n_vblk, eb=eb, n_verts=n_verts)

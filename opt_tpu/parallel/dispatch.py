@@ -4,134 +4,49 @@ The reference selects its entire execution backend with ONE flag
 (reference: Opt.h:23-25 `backend = "backend_cuda"|"backend_cpu"|
 "backend_cpu_mt"`, resolved in API/src/config.t:22); the user never
 picks per-kernel machinery by hand.  This module gives the multi-chip
-side the same shape: `plan.solve(inputs, mesh=m)` routes to the
-measured-best sharded path for the plan's kind and size, exactly like
-the single-chip `engine="auto"` dispatch (runtime/api.Plan._pick_engine):
-
-  graphs / 1-D domains / SampledImage  -> "gspmd"   (parallel/mesh.py:
-      sharding annotations on the inputs, XLA GSPMD inserts halos +
-      all-reduces; the only path that supports every energy)
-  2-D f32 grids past the streamed crossover -> "stream" (per-shard
-      streamed Pallas apply under shard_map, parallel/stream_shard.py)
-  3-D f32 volumes past the streamed crossover -> "stream3d"
-  everything else -> "gspmd"
-
-The streamed crossovers mirror the single-chip measured ones
-(GN >= 2048^2 / LM >= 512^2 pixels, >= 64^3 voxels,
-docs/sweep_tpu_r3.csv) applied to the PER-DEVICE slab: the streamed
-engines win exactly where a device's share of the PCG carries no
-longer fits the XLA VMEM-carry regime, which is a per-chip property.
-Multi-chip wall-clock is unmeasurable on this single-chip image, so
-the thresholds are the best available proxy; `OPT_TPU_SHARD_ENGINE`
-overrides the choice globally (ops escape hatch, like OPT_TPU_ENGINE).
+side the same shape: `plan.solve(inputs, mesh=m)` routes every plan to
+GSPMD (parallel/mesh.py: sharding annotations on the inputs, XLA
+inserts halos and all-reduces; the only path that supports every
+energy).
 
 The explicit ppermute halo path (parallel/halo.py) stays opt-in
 (engine="halo"): it computes the same thing as GSPMD with hand-rolled
-collectives and has no measured win of its own.
+collectives.
 """
 
 from __future__ import annotations
 
-import os
-
-import numpy as np
+SHARDED_ENGINES = ("gspmd", "halo")
 
 # single-chip engine names accepted as aliases so `plan.solve(...,
 # engine=..., mesh=m)` keeps meaning "the same engine, sharded"
-_ALIASES = {
-    "xla": "gspmd",
-    "stream_hbm": "stream",
-    "stream_shard": "stream",
-}
-
-
-def _flat_mesh(mesh):
-    """1-D view over ALL of a multi-axis mesh's devices (row-major).
-
-    The streamed shard engines slab one spatial axis over ONE mesh axis
-    (stream_shard.supports/supports3d), but real pods default to 2-D
-    meshes.  A solve is a standalone dispatch, so re-wrapping the same
-    devices in a fresh 1-D Mesh is legal; row-major flattening keeps
-    slab neighbors ICI-adjacent along the fastest-varying mesh axis
-    (the same locality argument as the reference's per-thread row
-    partitioning, backend_cpu_mt.t:52-70).  The caller's mesh object is
-    untouched -- only the streamed-engine dispatch sees the flat view."""
-    if mesh.devices.ndim == 1:
-        return mesh
-    from jax.sharding import Mesh
-
-    return Mesh(mesh.devices.reshape(-1), ("_stream_slab",))
+_ALIASES = {"auto": "gspmd", "xla": "gspmd"}
 
 
 def pick_sharded_engine(plan, mesh, engine="auto"):
-    """Resolve engine="auto" to the sharded path for this plan/mesh.
-
-    Returns one of "gspmd", "halo", "stream", "stream3d".
-    """
-    if engine == "auto":
-        engine = os.environ.get("OPT_TPU_SHARD_ENGINE", "auto")
+    """Resolve engine to the sharded path: "gspmd" or "halo"."""
     engine = _ALIASES.get(engine, engine)
-    if engine != "auto":
-        if engine == "vmem":
-            raise ValueError(
-                "engine='vmem' is single-chip only (whole solve in one "
-                "on-chip kernel); with a mesh use 'auto', 'gspmd', "
-                "'halo', 'stream' or 'stream3d'"
-            )
-        if engine not in ("gspmd", "halo", "stream", "stream3d"):
-            raise ValueError(f"unknown sharded engine {engine!r}")
-        return engine
-    if plan.spec.graphs or not plan.spec.images:
-        return "gspmd"
-    shape = next(iter(plan.spec.images.values())).ispace.shape
-    n_dev = int(mesh.devices.size)
-    from . import stream_shard
-
-    if len(shape) == 3:
-        from ..ops import stream3d
-
-        per_dev = int(np.prod(shape)) // n_dev
-        if (per_dev >= stream3d.AUTO_STREAM3D_MIN_VOXELS
-                and stream_shard.supports3d(plan, _flat_mesh(mesh))):
-            return "stream3d"
-        return "gspmd"
-    if len(shape) == 2:
-        from ..ops import stream_solver
-
-        min_px = (stream_solver.AUTO_STREAM_MIN_PIXELS_LM
-                  if plan.config.uses_lambda
-                  else stream_solver.AUTO_STREAM_MIN_PIXELS)
-        if (shape[0] * shape[1] // n_dev >= min_px
-                and stream_shard.supports(plan, _flat_mesh(mesh))):
-            return "stream"
-        return "gspmd"
-    return "gspmd"
+    if engine not in SHARDED_ENGINES:
+        raise ValueError(
+            f"unknown or removed sharded engine {engine!r}; use 'auto', "
+            f"'xla', 'gspmd' or 'halo'"
+        )
+    return engine
 
 
 def solve_sharded_auto(plan, inputs, mesh, engine="auto",
                        n_iterations=None, graph_mode=None):
-    """Full solve over a mesh through the auto-dispatched sharded path;
-    returns the final cost (replicated scalar).  Backs
+    """Full solve over a mesh through the selected sharded path; returns
+    the final cost (replicated scalar).  Backs
     `Plan.solve(inputs, mesh=...)`."""
-    eng = pick_sharded_engine(plan, mesh, engine)
-    if eng == "gspmd":
-        from . import mesh as pmesh
-
-        return pmesh.solve_sharded(
-            plan, inputs, mesh, n_iterations=n_iterations,
-            graph_mode=graph_mode or plan.state.graph_mode,
-        )
-    if eng == "halo":
+    if pick_sharded_engine(plan, mesh, engine) == "halo":
         from .halo import solve_sharded_halo
 
         return solve_sharded_halo(plan, inputs, mesh,
                                   n_iterations=n_iterations)
-    if eng == "stream":
-        from .stream_shard import solve_sharded_stream
+    from . import mesh as pmesh
 
-        return solve_sharded_stream(plan, inputs, _flat_mesh(mesh),
-                                    n_iterations=n_iterations)
-    from .stream_shard import solve_sharded_stream3d
-
-    return solve_sharded_stream3d(plan, inputs, _flat_mesh(mesh),
-                                  n_iterations=n_iterations)
+    return pmesh.solve_sharded(
+        plan, inputs, mesh, n_iterations=n_iterations,
+        graph_mode=graph_mode or plan.state.graph_mode,
+    )

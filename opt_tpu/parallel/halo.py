@@ -35,25 +35,13 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_vma=False)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=False)
+from jax.sharding import PartitionSpec as P
 
 from ..compile.plan_fns import ProblemFunctions
 from ..dsl import expr as E
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
-from ..solver.core import SolverConfig, make_solver
+from ..solver.core import make_solver
 
 
 def stencil_radius(spec, axis0_dim_index):
@@ -94,7 +82,6 @@ class ShardedGridFuncs:
         self.dtype = base.dtype
         self.use_preconditioner = base.use_preconditioner
         self.unknowns = base.unknowns
-        self.kernel_safe = False
 
     # -- halo plumbing -----------------------------------------------------
 
@@ -214,295 +201,9 @@ class ShardedGridFuncs:
         return total
 
 
-class ShardedChunkedGridFuncs(ShardedGridFuncs):
-    """ShardedGridFuncs with the outer step strip-mined over each
-    device's slab — the multi-chip composition of ops/stream_outer.py:
-    past the single-chip chunked-outer thresholds a device's whole-slab
-    outer evaluation (cost / JtF / diag / model cost) would OOM per
-    device exactly like the single-chip whole-grid outer did at 8192^2
-    / 192^3 (see stream_outer.py module docstring).
-
-    Windows of (S + 2r) rows slice off the halo-extended slab at
-    always-in-range offsets (halo = 2r >= r, so none of the single-chip
-    clamp/roll machinery is needed); residual terms mask to the strip's
-    S center rows, which tile exactly the device's owned rows, so each
-    term is counted once globally.  JtF / diag adjoint spill (reach
-    <= r) lands in the extended accumulator's halo rows and `_unext`
-    routes it back to the owning device with the transposed ppermute
-    pair — the communication dual of the parent's whole-slab
-    linear_transpose-through-`_ext` (ppermute at the global edges drops
-    transfers, which is exactly the out-of-grid-spill mask of
-    stream_outer._acc_add).
-
-    Like ChunkedOuterFuncs: full-height arrays stay CHANNEL PLANES
-    (the channel-last dynamic-slice layout trap, stream_outer.py:196),
-    and `linearize` returns an (x, data) token — only valid together
-    with a SolverConfig.pcg_backend."""
-
-    def __init__(self, base, halo, n_local, axis_name, n_dev, plan,
-                 radius, strip=None):
-        super().__init__(base, halo, n_local, axis_name, n_dev)
-        from ..ops.stream_outer import _pick_strip, STRIP_TARGET_ELEMS
-
-        shape = next(iter(plan.spec.images.values())).ispace.shape
-        self.rest = tuple(shape[1:])
-        rest_elems = 1
-        for e in self.rest:
-            rest_elems *= e
-        self.r = radius
-        S = strip or _pick_strip(
-            n_local, radius, STRIP_TARGET_ELEMS // max(rest_elems, 1))
-        assert n_local % S == 0 and S >= max(radius, 1), (
-            S, n_local, radius)
-        assert halo >= radius, (halo, radius)
-        self.S = S
-        self.n_strips = n_local // S
-        self.unknown_shapes = plan.funcs.unknown_shapes
-
-        dims_ext = list(plan.dims)
-        dims_ext[len(plan.dims) - 1] = S + 2 * radius
-        spec_w = ProblemSpec()
-        env = EnergyEnv(spec_w, dims_ext)
-        from ..runtime.api import _run_energy
-
-        _run_energy(plan.problem.energy, env)
-        real_shapes = {
-            im.ispace.key(): im.ispace.shape
-            for im in plan.spec.images.values()
-        }
-        self.wfuncs = ProblemFunctions(
-            spec_w, base.dtype, real_shapes=real_shapes
-        )
-        rows = S + 2 * radius
-        self._center = (
-            jnp.zeros((rows,), bool).at[radius:radius + S].set(True))
-
-    # -- strip plumbing over the extended slab ---------------------------
-
-    def _planes(self, arr):
-        return [arr[..., c] for c in range(arr.shape[-1])]
-
-    def _ext_planes(self, arr):
-        return [self._ext(p) for p in self._planes(arr)]
-
-    def _win(self, planes, w0):
-        """Window rows [w0, w0+S+2r) of extended-slab channel planes,
-        restacked channel-last (small per-strip array)."""
-        rows = self.S + 2 * self.r
-        return jnp.stack(
-            [jax.lax.dynamic_slice_in_dim(p, w0, rows, axis=0)
-             for p in planes], axis=-1)
-
-    def _strip_ctx(self, x, data):
-        xp = {n: self._ext_planes(v) for n, v in x.items()}
-        dp = {n: self._ext_planes(v)
-              for n, v in data["images"].items()}
-        idx = jax.lax.axis_index(self.axis_name).astype(jnp.int32)
-        return xp, dp, idx
-
-    def _windows(self, xp, dp, data, idx, s):
-        w0 = self.halo + s * self.S - self.r
-        xw = {n: self._win(v, w0) for n, v in xp.items()}
-        dw = {
-            "images": {n: self._win(v, w0) for n, v in dp.items()},
-            "params": data["params"],
-            "graph_indices": {},
-        }
-        self.wfuncs.coord_offsets = (
-            (idx * self.n_local + s * self.S - self.r,)
-            + (0,) * len(self.rest))
-        return xw, dw, w0
-
-    def _center_zero(self, f):
-        """Zero non-center rows of a (C, rows, *rest) stacked field."""
-        m = self._center.reshape((1, -1) + (1,) * (f.ndim - 2))
-        return jnp.where(m, f, 0.0)
-
-    def _unext(self, plane):
-        """Transpose of `_ext` for an extended accumulator plane: fold
-        halo-row contributions back onto their owners (edge transfers
-        drop — the out-of-grid adjoint spill mask)."""
-        h = self.halo
-        if h == 0:
-            return plane
-        top = plane[:h]
-        mid = plane[h:h + self.n_local]
-        bot = plane[h + self.n_local:]
-        ax, n = self.axis_name, self.n_dev
-        from_next = jax.lax.ppermute(
-            top, ax, perm=[(i + 1, i) for i in range(n - 1)])
-        from_prev = jax.lax.ppermute(
-            bot, ax, perm=[(i, i + 1) for i in range(n - 1)])
-        return mid.at[-h:].add(from_next).at[:h].add(from_prev)
-
-    def _acc_zeros(self):
-        return {
-            n: [jnp.zeros((self.n_local + 2 * self.halo,) + self.rest,
-                          self.dtype)
-                for _ in range(s[-1])]
-            for n, s in self.unknown_shapes.items()
-        }
-
-    def _acc_add(self, plane, w0, upd):
-        win = jax.lax.dynamic_slice_in_dim(
-            plane, w0, self.S + 2 * self.r, axis=0)
-        return jax.lax.dynamic_update_slice_in_dim(
-            plane, win + upd, w0, axis=0)
-
-    def _acc_finish(self, acc):
-        return {
-            n: jnp.stack([self._unext(p) for p in chans], axis=-1)
-            for n, chans in acc.items()
-        }
-
-    # -- funcs surface ----------------------------------------------------
-
-    def cost(self, x, data):
-        xp, dp, idx = self._strip_ctx(x, data)
-        wf = self.wfuncs
-
-        def body(s, total):
-            xw, dw, _ = self._windows(xp, dp, data, idx, s)
-            fields = wf.residual_fields(xw, dw, masked=True)
-            for f in jax.tree_util.tree_leaves(fields):
-                fc = self._center_zero(f)
-                total = total + 0.5 * jnp.sum(fc * fc)
-            return total
-
-        return jax.lax.fori_loop(
-            0, self.n_strips, body, jnp.zeros((), self.dtype))
-
-    def linearize(self, x, data):
-        """Token-based (see ChunkedOuterFuncs.linearize): with a
-        pcg_backend the solver never applies J itself."""
-        return (x, data), None, None
-
-    def jtf(self, r0_token, jt):
-        x, data = r0_token
-        xp, dp, idx = self._strip_ctx(x, data)
-        wf = self.wfuncs
-
-        def body(s, acc):
-            xw, dw, w0 = self._windows(xp, dp, data, idx, s)
-            fn = lambda xx: wf.residuals_solve(xx, dw)
-            r0w, jvp_fn = jax.linearize(fn, xw)
-            r0c = jax.tree_util.tree_map(self._center_zero, r0w)
-            jt_fn = jax.linear_transpose(jvp_fn, xw)
-            (g,) = jt_fn(r0c)
-            return {
-                n: [self._acc_add(plane, w0, g[n][..., c])
-                    for c, plane in enumerate(chans)]
-                for n, chans in acc.items()
-            }
-
-        acc = jax.lax.fori_loop(
-            0, self.n_strips, body, self._acc_zeros())
-        return self._acc_finish(acc)
-
-    def diag_jtj(self, x, data):
-        from ..dsl import expr as E
-
-        xp, dp, idx = self._strip_ctx(x, data)
-        wf = self.wfuncs
-        rows = self.S + 2 * self.r
-
-        def body(s, acc):
-            xw, dw, w0 = self._windows(xp, dp, data, idx, s)
-            upd = {
-                n: [jnp.zeros((rows,) + self.rest, self.dtype)
-                    for _ in chans]
-                for n, chans in acc.items()
-            }
-            for g, leaves, D in wf.leaf_partials(xw, dw):
-                for a, d in zip(leaves, D):
-                    assert isinstance(a.index, E.Offset), (
-                        "chunked outer covers grid leaves only"
-                    )
-                    d2 = jnp.sum(d * d, axis=0)
-                    m = self._center.reshape(
-                        (-1,) + (1,) * (d2.ndim - 1))
-                    d2 = jnp.where(m, d2, 0.0)
-                    contrib = wf._scatter(d2, a.index.data)
-                    upd[a.image.name][a.channel] = (
-                        upd[a.image.name][a.channel] + contrib
-                    )
-            return {
-                n: [self._acc_add(plane, w0, upd[n][c])
-                    for c, plane in enumerate(chans)]
-                for n, chans in acc.items()
-            }
-
-        acc = jax.lax.fori_loop(
-            0, self.n_strips, body, self._acc_zeros())
-        return self._acc_finish(acc)
-
-    def model_cost(self, r0_token, jvp_fn, delta, x, data):
-        xp, dp, idx = self._strip_ctx(x, data)
-        deltap = {n: self._ext_planes(v) for n, v in delta.items()}
-        wf = self.wfuncs
-
-        def body(s, total):
-            xw, dw, w0 = self._windows(xp, dp, data, idx, s)
-            dxw = {n: self._win(v, w0) for n, v in deltap.items()}
-            fn = lambda xx: wf.residuals_solve(xx, dw)
-            r0w, jvp_w = jax.linearize(fn, xw)
-            jd = jvp_w(dxw)
-            for g, f0, fd in zip(wf.groups, r0w, jd):
-                f = jax.tree_util.tree_map(jnp.add, f0, fd)
-                m = wf.exclude_mask(g.ispace.key(), xw, dw)
-                if m is not None:
-                    f = jax.tree_util.tree_map(
-                        lambda v: jnp.where(m[None], 0.0, v), f
-                    )
-                for leaf in jax.tree_util.tree_leaves(f):
-                    lc = self._center_zero(leaf)
-                    total = total + 0.5 * jnp.sum(lc * lc)
-            return total
-
-        return jax.lax.fori_loop(
-            0, self.n_strips, body, jnp.zeros((), self.dtype))
-
-
-def sharded_chunked_outer_enabled(plan, n_local):
-    """Auto gate for the per-shard strip-mined outer: the single-chip
-    chunked-outer thresholds applied to the PER-DEVICE slab (the OOM is
-    a per-chip property).  OPT_TPU_STREAM_CHUNKED_OUTER=1/0 forces,
-    same env contract as the single-chip gate."""
-    import os
-
-    from ..ops.stream_outer import (
-        AUTO_CHUNKED_OUTER_MIN_PIXELS,
-        AUTO_CHUNKED_OUTER_MIN_VOXELS,
-        supports_chunked_outer,
-    )
-
-    env = os.environ.get("OPT_TPU_STREAM_CHUNKED_OUTER")
-    if env == "0" or not supports_chunked_outer(plan):
-        return False
-    if env == "1":
-        return True
-    shape = next(iter(plan.spec.images.values())).ispace.shape
-    elems = n_local
-    for e in shape[1:]:
-        elems *= e
-    thr = (AUTO_CHUNKED_OUTER_MIN_VOXELS if len(shape) == 3
-           else AUTO_CHUNKED_OUTER_MIN_PIXELS)
-    return elems >= thr
-
-
-def make_halo_solver(plan, mesh, pcg_backend=None, chunked_outer=None):
+def make_halo_solver(plan, mesh):
     """Build (full_solve_sharded, n_local, halo) for a grid plan on a
-    1-D mesh; full_solve_sharded(x, data, sp) runs under shard_map.
-
-    pcg_backend: optional SolverConfig.pcg_backend installed on the
-    sharded config -- used by parallel/stream_shard.py to swap the inner
-    PCG for the per-shard streamed Pallas apply.
-
-    chunked_outer: strip-mine the outer step over each device's slab
-    (ShardedChunkedGridFuncs).  None = auto: on when the per-device
-    slab exceeds the single-chip chunked-outer thresholds (requires a
-    pcg_backend -- the token-based linearize has no J closures for the
-    plain inner loop)."""
+    1-D mesh; full_solve_sharded(x, data, sp) runs under shard_map."""
     assert not plan.spec.graphs, "halo path is for grid problems"
     has_sampled = [False]
 
@@ -545,23 +246,12 @@ def make_halo_solver(plan, mesh, pcg_backend=None, chunked_outer=None):
     for im in plan.spec.images.values():
         real_shapes[im.ispace.key()] = im.ispace.shape
     base = ProblemFunctions(spec, plan.funcs.dtype, real_shapes=real_shapes)
-    if chunked_outer is None:
-        chunked_outer = (pcg_backend is not None
-                         and sharded_chunked_outer_enabled(plan, n_local))
-    if chunked_outer:
-        assert pcg_backend is not None, (
-            "chunked outer needs a pcg_backend (token linearize)")
-        sharded = ShardedChunkedGridFuncs(
-            base, halo, n_local, axis_name, n_dev, plan, radius)
-    else:
-        sharded = ShardedGridFuncs(base, halo, n_local, axis_name, n_dev)
+    sharded = ShardedGridFuncs(base, halo, n_local, axis_name, n_dev)
 
     import copy
 
     cfg = copy.copy(plan.config)
     cfg.psum_axis = axis_name
-    if pcg_backend is not None:
-        cfg.pcg_backend = pcg_backend
     _, _, _, _, full_solve = make_solver(sharded, cfg)
 
     def body(x, data, sp):
@@ -602,8 +292,9 @@ def make_halo_solver(plan, mesh, pcg_backend=None, chunked_outer=None):
             "n_iter": scal,
             "done": scal,
         }
-        fn = shard_map(
+        fn = jax.shard_map(
             body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+            check_vma=False,
         )
         return fn(x, data, sp)
 

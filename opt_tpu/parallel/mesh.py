@@ -2,8 +2,8 @@
 
 The reference is single-device; its closest analogue is the CPU_MT backend's
 outermost-dimension block partition over a pthread pool (reference:
-API/src/backend_cpu_mt.t:698-944).  On TPU that role is played by SPMD
-partitioning over the ICI mesh:
+API/src/backend_cpu_mt.t:698-944).  Here that role is played by SPMD
+partitioning over a device mesh:
 
 * grid unknowns/arrays shard their leading spatial axes (H, or D and H for
   3D) across mesh axes -- the analogue of splitting the outermost loop dim
@@ -132,7 +132,7 @@ def solve_sharded(plan, inputs, mesh, n_iterations=None, graph_mode=None):
     partitions it.  Returns the final cost (replicated scalar).
 
     graph_mode: None/'take' shards flat original-order edge/vertex axes;
-    'banded' runs the banded MXU engine under SPMD -- vertex arrays and
+    'banded' runs the banded one-hot engine under SPMD -- vertex arrays and
     blocked edge arrays shard by vertex-block rows and GSPMD exchanges
     the one-block gather-window halos."""
     import jax.numpy as jnp

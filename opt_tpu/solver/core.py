@@ -1,6 +1,6 @@
 """Gauss-Newton / Levenberg-Marquardt solver with a PCG inner loop.
 
-Faithful TPU-native re-expression of the reference solver engine
+Faithful JAX re-expression of the reference solver engine
 (reference: API/src/solverGPUGaussNewton.t).  Where the reference launches
 ~26 per-ispace kernels with host syncs at every reduction read
 (ReduceVar memcpyDevice2Host), the whole outer iteration here is a single
@@ -126,11 +126,8 @@ class SolverConfig:
         jacobi_scaling="ONCE_PER_SOLVE",
         use_materialized_jacobian=False,
         use_fused_jtj=False,
-        use_pallas_pcg=False,
         pcg_variant="classic",
         psum_axis=None,
-        pcg_backend=None,
-        pcg_prepare=None,
     ):
         assert guarded_invert_type in GUARDED_INVERT_TYPES
         assert jacobi_scaling in JACOBI_SCALING_TYPES
@@ -139,29 +136,8 @@ class SolverConfig:
         self.jacobi_scaling = jacobi_scaling
         self.use_materialized_jacobian = use_materialized_jacobian
         self.use_fused_jtj = use_fused_jtj
-        self.use_pallas_pcg = use_pallas_pcg
         assert pcg_variant in ("classic", "pipelined")
         self.pcg_variant = pcg_variant
-        # optional replacement for the inner PCG loop: a callable
-        #   pcg_backend(x, data, sq, scs, b_hat, sp) -> delta_hat
-        # solving the symmetrically Jacobi-scaled system
-        #   S (JtJ [+ CtC]) S delta_hat = b_hat,  S = diag(sq)
-        # (scs = sq^2 * ctc for LM, None for GN; delta = sq * delta_hat).
-        # Used by the streamed Pallas engines (ops/stream_solver.py);
-        # every OUTER-iteration decision (trust region, accept/reject,
-        # cost bookkeeping) stays in this module.
-        self.pcg_backend = pcg_backend
-        # optional loop-invariant companion to pcg_backend:
-        #   pcg_prepare(data) -> prepared
-        # called ONCE outside the outer while loop (solve_fn /
-        # full_solve_fn); `prepared` is threaded into every
-        # pcg_backend(x, data, sq, scs, b_hat, sp, prepared=...) call.
-        # Used by the streamed engines to hoist the const-image plane
-        # restack out of the loop body: at 384^3 the per-iteration
-        # (nIn, D+2h, Hp+2h, Wp) ins stack was a 4.0 GB HLO temp and the
-        # const relayout copies another ~1.3 GB -- 47.5% allocator
-        # fragmentation and a compile OOM (17.37 of 15.75 GB measured)
-        self.pcg_prepare = pcg_prepare
         # mesh axis name for cross-device reductions: set by the explicit
         # shard_map halo path (parallel/halo.py) so the 5 PCG scalars and
         # the cost psum over the mesh (everything else stays local)
@@ -201,8 +177,7 @@ def make_solver(funcs, config: SolverConfig):
             "radius": jnp.asarray(sp["trust_region_radius"], dtype),
             "decrease_f": jnp.asarray(sp["radius_decrease_factor"], dtype),
             # SSq (PCGSaveSSq) only exists for LM; GN carries a scalar
-            # placeholder so the loop state stays small (matters for the
-            # VMEM Pallas engine)
+            # placeholder so the loop state stays small
             "ssq": tmap(jnp.ones_like, x) if uses_lambda
                    else jnp.zeros((), dtype),
             "n_iter": jnp.asarray(0, jnp.int32),
@@ -271,30 +246,6 @@ def make_solver(funcs, config: SolverConfig):
         """The PCG inner loop.  A: p -> (J^T J + CtC) p, pre: M^-1 diag."""
         if config.pcg_variant == "pipelined" and not uses_lambda:
             return pcg_pipelined(A, pre, r_init, sp, masks_apply)
-        # optional fused Pallas Step2 (opt_tpu/ops/pcg_pallas.py); falls
-        # back to interpret mode off-TPU so tests cover the kernel
-        if config.use_pallas_pcg:
-            from ..ops.pcg_pallas import fused_pcg_update
-
-            treedef = jax.tree_util.tree_structure(r_init)
-            shapes = [v.shape for v in jax.tree_util.tree_leaves(r_init)]
-            import math
-            sizes = [math.prod(s) for s in shapes]
-
-            def tflat(t):
-                return jnp.concatenate(
-                    [v.reshape(-1) for v in jax.tree_util.tree_leaves(t)]
-                )
-
-            def tunflat(vec):
-                parts = []
-                o = 0
-                for s, n in zip(shapes, sizes):
-                    parts.append(vec[o : o + n].reshape(s))
-                    o += n
-                return jax.tree_util.tree_unflatten(treedef, parts)
-
-            interp = jax.default_backend() != "tpu"
 
         L = jnp.asarray(sp["lIterations"], jnp.int32)
         period = jnp.asarray(sp["residual_reset_period"], jnp.int32)
@@ -337,27 +288,6 @@ def make_solver(funcs, config: SolverConfig):
 
                 do_reset = ((i + 1) % period) == 0
                 r = jax.lax.cond(do_reset, reset_branch, normal_branch, None)
-            elif config.use_pallas_pcg:
-                d2, r2, z2, bn_f, _qf = fused_pcg_update(
-                    alpha, tflat(c["p"]), tflat(Ap), tflat(c["delta"]),
-                    tflat(c["r"]), tflat(pre), tflat(c["r"]),
-                    uses_lambda=False, interpret=interp,
-                )
-                delta = tunflat(d2)
-                r = tunflat(r2)
-                z = tunflat(z2)
-                bn = bn_f
-                beta = _safe_div(bn, c["an"])
-                p = taxpy(beta, c["p"], z)
-                return {
-                    "delta": delta,
-                    "r": r,
-                    "p": p,
-                    "an": bn,
-                    "Q0": c["Q0"],
-                    "i": i + 1,
-                    "brk": c["brk"],
-                }
             else:
                 r = taxpy(-alpha, Ap, c["r"])
 
@@ -388,14 +318,8 @@ def make_solver(funcs, config: SolverConfig):
         out = jax.lax.while_loop(cond, body, carry0)
         return out["delta"]
 
-    def step_fn(state, data, sp, prepared=None):
-        """One nonlinear (outer) iteration; solverGPUGaussNewton.t:1913-2349.
-
-        `prepared` is the loop-invariant pcg_prepare(data) product when
-        the caller hoisted it (solve_fn); standalone step calls (the
-        profiled decomposition) recompute it here."""
-        if config.pcg_prepare is not None and prepared is None:
-            prepared = config.pcg_prepare(data)
+    def step_fn(state, data, sp):
+        """One nonlinear (outer) iteration; solverGPUGaussNewton.t:1913-2349."""
         x = state["x"]
         masks = funcs.unknown_masks(x, data)
 
@@ -404,7 +328,7 @@ def make_solver(funcs, config: SolverConfig):
 
         scope = jax.named_scope
         if config.use_materialized_jacobian:
-            # TPU-native CSR analogue: materialize the per-leaf partial
+            # CSR analogue: materialize the per-leaf partial
             # fields once per outer iteration (saveJToCRS parity,
             # solverGPUGaussNewton.t:1532-1657) and reuse them in every
             # PCG step.
@@ -479,41 +403,8 @@ def make_solver(funcs, config: SolverConfig):
             def A(p):
                 return masks_apply(jtj_apply(p))
 
-        if config.pcg_backend is not None:
-            # streamed-kernel inner loop in the hat space (see
-            # SolverConfig.pcg_backend); pre is already mask-zeroed, so
-            # sq carries the exclusion semantics
-            sq = tmap(jnp.sqrt, pre)
-            scs = (
-                tmap(lambda s, c: s * s * c, sq, ctc)
-                if uses_lambda else None
-            )
-            if getattr(config.pcg_backend, "takes_raw_b", False):
-                # capacity engines fuse the sq*b hat-scaling into their
-                # kernel-input pack, so no standalone b_hat pytree is
-                # ever materialized (nU whole-volume channels: 1.27 GB
-                # at 384^3 -- the r5 classic-kernel HBM diet)
-                b_hat = b
-            else:
-                b_hat = tmap(jnp.multiply, sq, b)
-            with scope("pcg_backend"):
-                if config.pcg_prepare is not None:
-                    d_hat = config.pcg_backend(
-                        x, data, sq, scs, b_hat, sp, prepared=prepared)
-                else:
-                    d_hat = config.pcg_backend(x, data, sq, scs, b_hat, sp)
-            if getattr(config.pcg_backend, "returns_delta", False):
-                # capacity engines un-scale delta themselves from the sq
-                # planes already packed in their kernel input, so the
-                # standalone sq pytree dies BEFORE the kernel launches
-                # (nU whole-volume channels: 1.27 GB at 384^3 -- part of
-                # the r5 classic-kernel HBM diet)
-                delta = d_hat
-            else:
-                delta = tmap(jnp.multiply, sq, d_hat)
-        else:
-            with scope("pcg_loop"):
-                delta = pcg_loop(A, pre, r, b, sp, masks_apply)
+        with scope("pcg_loop"):
+            delta = pcg_loop(A, pre, r, b, sp, masks_apply)
 
         with scope("linear_update_and_cost"):
             x_new = tadd(x, masks_apply(delta))
@@ -542,10 +433,8 @@ def make_solver(funcs, config: SolverConfig):
         ftol = jnp.asarray(sp["function_tolerance"], dtype)
         ftol_reached = cost_change <= state["prev_cost"] * ftol
         step_quality = relative_decrease
-        # powf(2q-1, 3) as an explicit cube: same HLO under XLA (which
-        # expands constant integer powers to multiplies) but Mosaic has
-        # no powf legalization, and the whole LM solve must lower
-        # inside the VMEM whole-solve kernel (ops/vmem_solver.py)
+        # powf(2q-1, 3) as an explicit cube (XLA expands constant
+        # integer powers to the same multiplies)
         tmp_base = 2.0 * step_quality - 1.0
         tmp_factor = 1.0 - tmp_base * tmp_base * tmp_base
         radius_acc = state["radius"] / jnp.maximum(1.0 / 3.0, tmp_factor)
@@ -598,16 +487,12 @@ def make_solver(funcs, config: SolverConfig):
     def solve_fn(state, data, sp):
         """Whole solve on device: while n_iter < nIterations and not done."""
         n_max = jnp.asarray(sp["nIterations"], jnp.int32)
-        # loop-invariant backend prep hoisted OUT of the while body (one
-        # materialization for the whole solve; see SolverConfig.pcg_prepare)
-        prepared = (config.pcg_prepare(data)
-                    if config.pcg_prepare is not None else None)
 
         def cond(s):
             return (s["n_iter"] < n_max) & (~s["done"])
 
         def body(s):
-            return step_fn(s, data, sp, prepared=prepared)
+            return step_fn(s, data, sp)
 
         return jax.lax.while_loop(cond, body, state)
 

@@ -5,7 +5,7 @@ outer iteration (saveJToCRS) and runs SpMV per PCG step, optionally fusing
 J^T J with a sparse GEMM (reference: Opt.h:33-34,
 solverGPUGaussNewton.t:1532-1757, backend_cuda.t:540-655, linalg_cpu*.t).
 
-On TPU, CSR SpMV is the wrong representation: J's sparsity is *structured*
+Here CSR SpMV is the wrong representation: J's sparsity is *structured*
 (per residual row, one entry per unknown stencil/graph leaf), so J
 materializes as dense per-leaf partial fields D_a with shape
 (n_channels, *domain) -- exactly the quantities the diag(J^T J) pass
@@ -62,7 +62,7 @@ def _scatter_add(out_tree, access, field, graph_indices):
 
 
 class MaterializedJacobian:
-    """Per-group leaf partial fields; the TPU-native 'CSR J'."""
+    """Per-group leaf partial fields; the structured 'CSR J'."""
 
     def __init__(self, funcs, x, data):
         self.funcs = funcs

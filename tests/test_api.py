@@ -216,54 +216,39 @@ def test_public_api_surface_stability():
         assert callable(getattr(opt_tpu.Plan, m)), m
 
 
-def test_plane_mode_matches_array_mode():
-    """Experimental channel-plane solver layout (OptState.plane_mode)
-    must match the default array layout for GN and LM (measured-slower
-    on TPU but kept as a layout experiment; see OptState docs)."""
-    import numpy as np
-    import opt_tpu
-    from tests.test_solver_dense import warp_energy, warp_inputs
+@pytest.mark.parametrize("env_set", [True, False])
+def test_persistent_compilation_cache(env_set, tmp_path, monkeypatch):
+    """The one compile-cache rule: with JAX_COMPILATION_CACHE_DIR set,
+    JAX's own setting stands and OptState sets no directory; without it
+    the cache goes to a fixed path in the checkout (never a temporary
+    name)."""
+    import jax
+    from opt_tpu.runtime import api
 
-    W, H = 24, 16
-    inputs = warp_inputs(W, H, seed=3)
-    for kind in ("gaussNewtonGPU", "LMGPU"):
-        res = {}
-        for pm in (False, True):
-            state = opt_tpu.NewState(plane_mode=pm)
-            plan = state.problem_plan(
-                state.problem_define(warp_energy, kind), [W, H])
-            plan.set_solver_parameter("nIterations", 2)
-            plan.set_solver_parameter("lIterations", 8)
-            plan.init(inputs)
-            while plan.step():
-                pass
-            res[pm] = (plan.final_cost(), plan.unknowns())
-        assert abs(res[True][0] - res[False][0]) <= (
-            1e-4 * abs(res[False][0])
-        )
-        for n in res[False][1]:
-            np.testing.assert_allclose(
-                res[True][1][n], res[False][1][n], rtol=2e-3, atol=1e-4)
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                               str(tmp_path / "xla_cache"))
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        opt_tpu.NewState()
+        got = jax.config.jax_compilation_cache_dir
+        if env_set:
+            assert got is None
+        else:
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            assert got == os.path.join(repo, ".jax_cache")
+            assert got == api.DEFAULT_CACHE_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
 
 
-def test_persistent_compilation_cache(tmp_path):
-    """OptState(compilation_cache_dir=...) populates a persistent XLA
-    cache so warm process restarts skip plan compiles (production
-    serving knob; the reference caches compiled plans in-process only,
-    o.t makePlan)."""
-    cache = tmp_path / "xla_cache"
-    cache.mkdir()
-    rng = np.random.RandomState(3)
-    state = opt_tpu.NewState(compilation_cache_dir=str(cache))
-    path = tmp_path / "energy.py"
-    path.write_text(ENERGY_FILE_SRC)
-    plan = state.ProblemPlan(
-        state.ProblemDefine(str(path), "gaussNewtonGPU"), [6, 5]
-    )
-    plan.SetSolverParameter("nIterations", 1)
-    plan.SetSolverParameter("lIterations", 3)
-    plan.Init(_inputs(6, 5, rng))
-    while plan.Step():
-        pass
-    assert np.isfinite(plan.CurrentCost())
-    assert any(cache.iterdir()), "compilation cache dir stayed empty"
+def test_removed_state_options_rejected():
+    """The removed device-specific OptState options raise instead of
+    being silently ignored."""
+    for kw in ("use_pallas", "plane_mode", "compilation_cache_dir"):
+        with pytest.raises(TypeError):
+            opt_tpu.NewState(**{kw: True})

@@ -24,49 +24,26 @@ def test_pick_small_grid_gspmd():
     assert pick_sharded_engine(plan, _mesh1d()) == "gspmd"
 
 
-def test_pick_large_gn_grid_stream():
-    # per-device slab 2048x2048 = the measured single-chip GN crossover
-    plan = _plan(energies.image_warping, [2048, 8 * 2048])
-    assert pick_sharded_engine(plan, _mesh1d()) == "stream"
+@pytest.mark.parametrize("kind,dims", [
+    ("gaussNewtonGPU", [2048, 8 * 2048]),
+    ("LMGPU", [512, 8 * 512]),
+    ("gaussNewtonGPU", [128, 64, 8 * 32]),
+])
+def test_pick_large_grid_gspmd(kind, dims):
+    """Large grids and volumes route to GSPMD too: no size switches to a
+    device-specific sharded engine."""
+    energy = (energies.image_warping if len(dims) == 2
+              else energies.ALL_ENERGIES["volumetric_mesh_deformation"])
+    plan = _plan(energy, dims, kind)
+    assert pick_sharded_engine(plan, _mesh1d()) == "gspmd"
 
 
-def test_pick_lm_grid_stream_lower_threshold():
-    # LM crossover is 512^2 per device (stream wins earlier: the 5-sweep
-    # outer re-reads the grid more, docs/sweep_tpu_r3.csv)
-    plan = _plan(energies.image_warping, [512, 8 * 512], "LMGPU")
-    assert pick_sharded_engine(plan, _mesh1d()) == "stream"
-    gn = _plan(energies.image_warping, [512, 8 * 512])
-    assert pick_sharded_engine(gn, _mesh1d()) == "gspmd"
-
-
-def test_pick_large_volume_stream3d():
-    energy = energies.ALL_ENERGIES["volumetric_mesh_deformation"]
-    plan = _plan(energy, [128, 64, 8 * 32])  # 64^3 voxels per device
-    assert pick_sharded_engine(plan, _mesh1d()) == "stream3d"
-    small = _plan(energy, [128, 16, 16])
-    assert pick_sharded_engine(small, _mesh1d()) == "gspmd"
-
-
-def test_pick_2d_mesh_flattens_to_stream():
-    """The streamed shard engines slab over ONE mesh axis, but a 2-D
-    mesh (the shape real pods default to) is accepted by flattening
-    row-major over all devices (dispatch._flat_mesh) -- so 2-D meshes
-    reach the streamed engines at crossover sizes instead of silently
-    falling back to GSPMD (round-4 VERDICT weak #5)."""
+def test_pick_2d_mesh_gspmd():
     from opt_tpu.parallel import mesh as pmesh
-    from opt_tpu.parallel.dispatch import _flat_mesh
 
     m2 = pmesh.make_mesh(8, shape=(2, 4))
-    flat = _flat_mesh(m2)
-    assert flat.devices.ndim == 1 and flat.devices.size == 8
     plan = _plan(energies.image_warping, [2048, 8 * 2048])
-    assert pick_sharded_engine(plan, m2) == "stream"
-    energy = energies.ALL_ENERGIES["volumetric_mesh_deformation"]
-    vol = _plan(energy, [128, 64, 8 * 32])
-    assert pick_sharded_engine(vol, m2) == "stream3d"
-    # ineligible on the FLAT view (slab misalignment) still -> gspmd
-    odd = _plan(energies.image_warping, [2048, 8 * 2048 + 8])
-    assert pick_sharded_engine(odd, m2) == "gspmd"
+    assert pick_sharded_engine(plan, m2) == "gspmd"
 
 
 def test_pick_graph_gspmd():
@@ -77,19 +54,30 @@ def test_pick_graph_gspmd():
 def test_pick_aliases_and_vmem_rejection():
     plan = _plan(energies.image_warping, [128, 64])
     m = _mesh1d()
+    assert pick_sharded_engine(plan, m) == "gspmd"
     assert pick_sharded_engine(plan, m, engine="xla") == "gspmd"
-    assert pick_sharded_engine(plan, m, engine="stream_hbm") == "stream"
+    assert pick_sharded_engine(plan, m, engine="gspmd") == "gspmd"
     assert pick_sharded_engine(plan, m, engine="halo") == "halo"
-    with pytest.raises(ValueError, match="single-chip only"):
+    with pytest.raises(ValueError, match="removed"):
         pick_sharded_engine(plan, m, engine="vmem")
-    with pytest.raises(ValueError, match="unknown sharded engine"):
+    with pytest.raises(ValueError, match="unknown"):
         pick_sharded_engine(plan, m, engine="warpspeed")
 
 
+@pytest.mark.parametrize(
+    "engine", ["stream", "stream3d", "stream_hbm", "stream_shard"])
+def test_pick_removed_sharded_engines(engine):
+    plan = _plan(energies.image_warping, [128, 64])
+    with pytest.raises(ValueError, match="removed"):
+        pick_sharded_engine(plan, _mesh1d(), engine=engine)
+
+
 def test_pick_env_override(monkeypatch):
+    """The OPT_TPU_SHARD_ENGINE escape hatch is gone: the environment
+    does not change the route."""
     monkeypatch.setenv("OPT_TPU_SHARD_ENGINE", "halo")
     plan = _plan(energies.image_warping, [128, 64])
-    assert pick_sharded_engine(plan, _mesh1d()) == "halo"
+    assert pick_sharded_engine(plan, _mesh1d()) == "gspmd"
 
 
 def test_plan_solve_mesh_grid_parity():
@@ -103,10 +91,10 @@ def test_plan_solve_mesh_grid_parity():
     assert cost == pytest.approx(ref, rel=1e-5)
 
 
-@pytest.mark.parametrize("engine", ["stream_hbm", "halo"])
+@pytest.mark.parametrize("engine", ["xla", "gspmd", "halo"])
 def test_plan_solve_mesh_explicit_engines(engine):
     """Explicit engine selection through the unified entry: single-chip
-    alias 'stream_hbm' -> sharded stream; 'halo' -> explicit ppermute."""
+    alias 'xla' -> GSPMD; 'halo' -> explicit ppermute."""
     W, H = 128, 64
     inputs = _warp_inputs(W, H)
     ref = _single(energies.image_warping, [W, H], inputs)

@@ -26,7 +26,7 @@ def test_dryrun_multichip_8():
 
 
 def test_bench_prints_one_json_line():
-    # static contract check (no TPU in tests): parse the print format
+    # static contract check (no GPU in tests): parse the print format
     import bench
 
     assert callable(bench.main)

@@ -88,12 +88,11 @@ def test_volumetric_many_iters_decreases():
     assert np.isfinite(c) and c < 189.74081  # below the (1,1,1) golden
 
 
-def test_poisson_pallas_solver_slot():
-    """--useCUDA registers the hand-optimized Pallas(VMEM) solver in the
-    reference's per-example CUDA-solver slot (CombinedSolverBase.h:67-81)
-    and it matches Opt(GN) on the same run."""
+def test_poisson_cuda_solver_slot():
+    """--useCUDA is parsed for CLI parity with the reference's
+    per-example CUDA-solver slot (CombinedSolverBase.h:67-81) but
+    registers no hand-written solver: only Opt(GN) runs."""
     solver = _run("poisson_image_editing",
                   ["--stride", "4", "--useCUDA", "true"])
-    gn = solver.get_cost("Opt(GN)")
-    pallas = solver.get_cost("Pallas(VMEM)")
-    assert abs(pallas - gn) / abs(gn) < 1e-4, (pallas, gn)
+    assert [s["name"] for s in solver.m_solverInfo] == ["Opt(GN)"]
+    assert np.isfinite(solver.get_cost("Opt(GN)"))

@@ -121,39 +121,6 @@ def test_robust_nonrigid_alignment_runs():
     assert abs(solver.first_solve_cost - 66.784683) / 66.784683 < 0.1
 
 
-VMEM_GOLDEN_CASES = {
-    # grid examples at golden configs, solved by the whole-solve-in-VMEM
-    # Pallas engine (interpret mode on CPU) -- the 4th "backend" of the
-    # reference's cross-backend matrix
-    "image_warping": ([], 1774.3405),
-    "poisson_image_editing": (["--stride", "4"], 2975554.25),
-    "intrinsic_image_decomposition": (["--stride", "12"], 1225761.25),
-    "volumetric_mesh_deformation": ([], 189.74081),  # 3D grid
-}
-
-
-@pytest.mark.parametrize("name", sorted(VMEM_GOLDEN_CASES))
-def test_vmem_engine_golden(name):
-    from opt_tpu.ops import vmem_solver
-
-    argv, golden = VMEM_GOLDEN_CASES[name]
-    mod = __import__(name)
-    solver = mod.run(list(argv) + ["--noOutput", "true"])
-    plan = solver.m_solverInfo[0]["plan"]
-    if not vmem_solver.supports(plan):
-        pytest.skip("exceeds VMEM budget at this size")
-    # the harness writes solved unknowns back into m_problemParams;
-    # reset to the pre-solve state before re-solving with the vmem engine
-    solver.pre_single_solve()
-    solver.pre_nonlinear_solve(0)
-    got = vmem_solver.VmemSolver(plan).solve(solver.m_problemParams)
-    rel = abs(got["final_cost"] - golden) / abs(golden)
-    assert rel < 1e-4, (
-        f"{name} (vmem engine): {got['final_cost']} vs {golden} "
-        f"(rel {rel:.3g})"
-    )
-
-
 def test_golden_image_warping_double_precision():
     """float64 unknowns must land on the same golden at the float32
     tolerance (Opt.h:14 double-precision switch parity)."""
@@ -198,7 +165,7 @@ def test_golden_arap_double_precision():
     "name", ["arap_mesh_deformation", "cotangent_mesh_smoothing"]
 )
 def test_golden_banded_graph_engine(name, monkeypatch):
-    """Graph goldens through the banded MXU gather/scatter engine
+    """Graph goldens through the banded one-hot gather/scatter engine
     (ops/graph_banded.py), forced on despite the small test meshes: the
     banded path must satisfy the same reference-CUDA golden contract as
     take/segment_sum."""

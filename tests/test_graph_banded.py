@@ -209,38 +209,6 @@ def test_ell_transpose_pairing(monkeypatch):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_onehot_pallas_interpret(banding):
-    """Pallas one-hot kernels (interpret mode) match the XLA path."""
-    from opt_tpu.ops import onehot_pallas as op
-
-    vb, slots, n = banding
-    g = vb.graphs["G"]
-    rng = np.random.RandomState(17)
-    c = 2
-    vals = rng.randn(n, c).astype(np.float32)
-    pb = jnp.pad(jnp.asarray(vals), ((0, g.n_vblk * g.vb - n), (0, 0)))
-    ws = gb._split3(gb._windows(pb.reshape(g.n_vblk, g.vb, c)))
-    loc = jnp.asarray(g.loc["v1"])
-    got = gb._recomb(
-        np.asarray(op.onehot_gather_blocks(loc, ws, interpret=True)), c
-    )
-    want = gb._gather_impl(loc, jnp.asarray(vals), **_meta(g, n))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    e = rng.randn(g.n_vblk, g.eb, c).astype(np.float32)
-    es = gb._split3(jnp.asarray(e))
-    w = gb._recomb(np.asarray(
-        op.onehot_scatter_windows(loc, es, 3 * g.vb, interpret=True)), c)
-    # reference: dense one-hot contraction per block
-    want_w = np.zeros((g.n_vblk, 3 * g.vb, c), np.float32)
-    locn = np.asarray(g.loc["v1"])
-    for b in range(g.n_vblk):
-        for r in range(g.eb):
-            if locn[b, r] >= 0:
-                want_w[b, locn[b, r]] += e[b, r]
-    np.testing.assert_allclose(np.asarray(w), want_w, rtol=1e-5, atol=1e-5)
-
-
 # ---------------------------------------------------------------------------
 # tiled two-level layout: high-bandwidth graphs (local + long-range edges)
 # ---------------------------------------------------------------------------

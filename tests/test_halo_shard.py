@@ -113,200 +113,3 @@ def test_halo_rejects_sampled_image():
     plan = _plan(energies.optical_flow, [W, H])
     with pytest.raises(AssertionError, match="SampledImage"):
         phalo.make_halo_solver(plan, mesh)
-
-
-# ---------------------------------------------------------------------------
-# multi-chip streamed engine (parallel/stream_shard.py)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("variant", ["pipelined", "classic"])
-def test_sharded_stream_matches_single_image_warping(variant):
-    """Per-shard streamed Pallas apply + psum'd PCG scalars: final cost
-    matches the single-device solve at the cross-backend contract
-    (pipelined = one-barrier Ghysels-Vanroose, the default)."""
-    from opt_tpu.parallel import stream_shard as pss
-
-    W, H = 128, 64
-    inputs = _warp_inputs(W, H)
-    ref = _single(energies.image_warping, [W, H], inputs)
-    plan = _plan(energies.image_warping, [W, H])
-    assert pss.supports(plan, _mesh1d())
-    cost = pss.solve_sharded_stream(plan, inputs, _mesh1d(),
-                                    variant=variant)
-    assert cost == pytest.approx(ref, rel=1e-5)
-
-
-def test_sharded_stream_2d_mesh_flattened():
-    """A 2-D mesh reaches the streamed engine via the dispatcher's
-    row-major flattening (dispatch._flat_mesh): same final cost as the
-    single-device solve.  Uses the explicit engine (the small test grid
-    is below the auto crossover)."""
-    from opt_tpu.parallel import mesh as pmesh
-    from opt_tpu.parallel.dispatch import solve_sharded_auto
-
-    W, H = 128, 64
-    inputs = _warp_inputs(W, H)
-    ref = _single(energies.image_warping, [W, H], inputs)
-    plan = _plan(energies.image_warping, [W, H])
-    m2 = pmesh.make_mesh(8, shape=(2, 4))
-    cost = solve_sharded_auto(plan, inputs, m2, engine="stream")
-    assert cost == pytest.approx(ref, rel=1e-5)
-
-
-def test_sharded_stream_matches_single_lm():
-    """LM on the sharded streamed engine: scs diagonal in the per-shard
-    apply, psum'd Q/zeta exit, periodic exact residual replacement --
-    final cost matches the single-device LM solve (the reference runs
-    GN AND LM through every backend, examples/test_final_cost.py:84-95)."""
-    from opt_tpu.parallel import stream_shard as pss
-
-    W, H = 128, 64
-    inputs = _warp_inputs(W, H)
-    ref = _single(energies.image_warping, [W, H], inputs, "LMGPU")
-    plan = _plan(energies.image_warping, [W, H], "LMGPU")
-    assert pss.supports(plan, _mesh1d())
-    cost = pss.solve_sharded_stream(plan, inputs, _mesh1d())
-    assert cost == pytest.approx(ref, rel=1e-5)
-
-
-def test_sharded_stream_lm_exercises_residual_reset():
-    """With lIterations > residual_reset_period the lax.cond reset
-    branch runs; parity must hold through it."""
-    from opt_tpu.parallel import stream_shard as pss
-
-    W, H = 128, 64
-    inputs = _warp_inputs(W, H, seed=3)
-
-    def mk():
-        p = _plan(energies.image_warping, [W, H], "LMGPU")
-        p.set_solver_parameter("lIterations", 12)
-        p.set_solver_parameter("residual_reset_period", 5)
-        return p
-
-    p1 = mk()
-    x, data = p1.bind(inputs)
-    sp = p1._sp_device()
-    sp["nIterations"] = jnp.asarray(2, jnp.int32)
-    ref = float(p1._full_solve_fn(x, data, sp)["prev_cost"])
-    cost = pss.solve_sharded_stream(mk(), inputs, _mesh1d())
-    assert cost == pytest.approx(ref, rel=1e-5)
-
-
-def test_sharded_stream_matches_single_poisson_exclude():
-    """Exclude() masking flows through sq = 0 into the per-shard apply."""
-    from opt_tpu.parallel import stream_shard as pss
-
-    W, H = 128, 64
-    inputs = _poisson_inputs(W, H)
-    ref = _single(energies.poisson_image_editing, [W, H], inputs)
-    plan = _plan(energies.poisson_image_editing, [W, H])
-    cost = pss.solve_sharded_stream(plan, inputs, _mesh1d())
-    assert cost == pytest.approx(ref, rel=1e-5)
-
-
-@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
-def test_sharded_stream_chunked_outer_parity(kind, monkeypatch):
-    """Sharding x chunked outer (the r4 composition gap): the per-shard
-    strip-mined outer step (halo.ShardedChunkedGridFuncs) holds parity
-    with the single-device solve, GN and LM (LM adds the strip-mined
-    model_cost).  Forced on at test size via
-    OPT_TPU_STREAM_CHUNKED_OUTER=1 with a tiny strip target so each
-    device's slab splits into 4 strips -- multi-strip accumulation AND
-    the _unext transposed-ppermute halo-spill routing both execute."""
-    from opt_tpu.parallel import stream_shard as pss
-    from opt_tpu.ops import stream_outer
-
-    W, H = 128, 128   # 16 rows/device
-    inputs = _warp_inputs(W, H)
-    ref = _single(energies.image_warping, [W, H], inputs, kind)
-    monkeypatch.setenv("OPT_TPU_STREAM_CHUNKED_OUTER", "1")
-    monkeypatch.setattr(stream_outer, "STRIP_TARGET_ELEMS", 4 * W)
-    plan = _plan(energies.image_warping, [W, H], kind)
-    cost = pss.solve_sharded_stream(plan, inputs, _mesh1d())
-    assert cost == pytest.approx(ref, rel=2e-5)
-
-
-def test_sharded_stream3d_chunked_outer(monkeypatch):
-    """The 3-D composition: D-slab shards with the outer step
-    strip-mined over each slab's D planes."""
-    from opt_tpu.parallel import stream_shard as pss
-    from opt_tpu.ops import stream_outer
-
-    energy = energies.ALL_ENERGIES["volumetric_mesh_deformation"]
-    W, H, D = 128, 16, 32   # 4 D-planes/device
-    inputs = _vol_inputs(W, H, D)
-    ref = _single(energy, [W, H, D], inputs)
-    monkeypatch.setenv("OPT_TPU_STREAM_CHUNKED_OUTER", "1")
-    monkeypatch.setattr(stream_outer, "STRIP_TARGET_ELEMS", H * W)
-    plan = _plan(energy, [W, H, D])
-    cost = pss.solve_sharded_stream3d(plan, inputs, _mesh1d())
-    assert cost == pytest.approx(ref, rel=5e-4)
-
-
-def test_sharded_stream_rejects_graphs():
-    from opt_tpu.parallel import stream_shard as pss
-
-    graph = _plan(energies.arap_mesh_deformation, [64, 128])
-    assert not pss.supports(graph, _mesh1d())
-
-
-def _vol_inputs(W, H, D, seed=2):
-    rng = np.random.RandomState(seed)
-    ii, jj, kk = np.meshgrid(
-        np.arange(D), np.arange(H), np.arange(W), indexing="ij")
-    grid = np.stack([ii, jj, kk], -1).astype(np.float32)
-    cons = np.full_like(grid, -np.inf)
-    cons[:, 0] = grid[:, 0]
-    cons[:, -1] = grid[:, -1] + np.float32(1.5)
-    return {
-        "Offset": grid + 0.01 * rng.randn(*grid.shape).astype(np.float32),
-        "UrShape": grid.copy(),
-        "Angle": np.zeros_like(grid),
-        "Constraints": cons.astype(np.float32),
-        "w_fitSqrt": 1.0,
-        "w_regSqrt": np.sqrt(0.5),
-    }
-
-
-@pytest.mark.parametrize("variant", ["pipelined", "classic"])
-def test_sharded_stream3d_matches_single(variant):
-    """3-D per-shard streamed apply (ShardedStream3D): each device owns
-    a D-slab, halo PLANES ppermute, scalars psum.  Tolerance 5e-4:
-    volumetric f32 sums already differ ~8e-5 across reduction trees
-    (tests/test_sharding.py docstring)."""
-    from opt_tpu.parallel import stream_shard as pss
-
-    energy = energies.ALL_ENERGIES["volumetric_mesh_deformation"]
-    W, H, D = 128, 16, 16   # 8 devices -> n_local=2 >= he=2
-    inputs = _vol_inputs(W, H, D)
-    ref = _single(energy, [W, H, D], inputs)
-    plan = _plan(energy, [W, H, D])
-    assert pss.supports3d(plan, _mesh1d())
-    cost = pss.solve_sharded_stream3d(plan, inputs, _mesh1d(),
-                                      variant=variant)
-    assert cost == pytest.approx(ref, rel=5e-4)
-
-
-def test_sharded_stream3d_matches_single_lm():
-    """LM through the 3-D sharded streamed engine (scs + Q/zeta + reset
-    on D-slab shards)."""
-    from opt_tpu.parallel import stream_shard as pss
-
-    energy = energies.ALL_ENERGIES["volumetric_mesh_deformation"]
-    W, H, D = 128, 16, 16
-    inputs = _vol_inputs(W, H, D)
-    ref = _single(energy, [W, H, D], inputs, "LMGPU")
-    plan = _plan(energy, [W, H, D], "LMGPU")
-    assert pss.supports3d(plan, _mesh1d())
-    cost = pss.solve_sharded_stream3d(plan, inputs, _mesh1d())
-    assert cost == pytest.approx(ref, rel=5e-4)
-
-
-def test_sharded_stream3d_rejects():
-    from opt_tpu.parallel import stream_shard as pss
-
-    energy = energies.ALL_ENERGIES["volumetric_mesh_deformation"]
-    # D=8 over 8 devices -> n_local=1 < he=2
-    thin = _plan(energy, [128, 16, 8])
-    assert not pss.supports3d(thin, _mesh1d())

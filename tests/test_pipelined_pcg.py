@@ -7,7 +7,19 @@ import pytest
 import opt_tpu
 from opt_tpu import energies
 from tests.test_solver_dense import warp_energy, warp_inputs
-from tests.test_poisson_pallas import make_inputs as poisson_inputs
+
+
+def poisson_inputs(W, H, seed=0):
+    """Poisson image editing with an interior free box (M != 0 means
+    excluded)."""
+    rng = np.random.RandomState(seed)
+    base = (255 * rng.rand(H, W, 4)).astype(np.float32)
+    base[..., 3] = 255.0
+    target = (255 * rng.rand(H, W, 4)).astype(np.float32)
+    target[..., 3] = 255.0
+    m = np.full((H, W, 1), 255.0, np.float32)
+    m[3 : H - 3, 4 : W - 4] = 0.0
+    return {"X": base, "T": target, "M": m}
 
 
 def run(energy, dims, inputs, variant, n, l):

@@ -120,9 +120,8 @@ def test_solve_many_graphs_take_mode():
 
 
 def test_solve_many_auto_guardrail(monkeypatch):
-    """auto mode must route batches past the measured win region
-    (batch x pixels > 2^20, docs/sweep_tpu_r3.csv: 512^2 x 8 batched =
-    0.53x solo) to the sequential solo loop -- same costs, same
+    """auto mode must route batches past SOLVE_MANY_AUTO_MAX_PIXELS
+    (batch x pixels) to the sequential solo loop -- same costs, same
     _batched_state contract; mode='batched' forces the vmap path."""
     import opt_tpu.runtime.api as api
 
@@ -147,51 +146,9 @@ def test_solve_many_auto_guardrail(monkeypatch):
     assert set(x0) == {"Offset", "Angle"}
 
 
-def test_solve_many_solo_lanes_take_vmem(monkeypatch):
-    """When the solo loop fires at vmem-eligible sizes (TPU), each lane
-    runs the whole-solve VMEM kernel instead of the fused XLA program
-    (1.5-3.6x per lane measured, docs/sweep_tpu_r5.csv) -- same costs,
-    same batch_unknowns contract."""
-    import jax
-
-    import opt_tpu.runtime.api as api
-    from opt_tpu.ops import vmem_solver
-
-    W, H = 9, 7
-    inputs_list = [warp_inputs(W, H, seed=s) for s in (0, 1)]
-    state = opt_tpu.NewState()
-    plan = state.problem_plan(
-        state.problem_define(warp_energy, "gaussNewtonGPU"), [W, H]
-    )
-    plan.set_solver_parameter("nIterations", 2)
-    plan.set_solver_parameter("lIterations", 6)
-    solo = _solo_costs("gaussNewtonGPU", inputs_list, W, H, 2, 6)
-
-    monkeypatch.setattr(api, "SOLVE_MANY_AUTO_MAX_PIXELS", W * H - 1)
-    monkeypatch.setattr(vmem_solver, "AUTO_VMEM_MIN_PIXELS", 1)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert plan._pick_engine("auto") == "vmem"
-    calls = []
-    orig = vmem_solver.VmemSolver.solve
-
-    def spy(self, inputs, interpret=None):
-        calls.append(1)
-        # the monkeypatched default_backend would pick non-interpret;
-        # force interpret on the CPU test backend
-        return orig(self, inputs, interpret=True)
-
-    monkeypatch.setattr(vmem_solver.VmemSolver, "solve", spy)
-    costs = plan.solve_many(inputs_list)  # auto -> solo -> vmem lanes
-    assert len(calls) == len(inputs_list)
-    np.testing.assert_allclose(costs, solo, rtol=2e-5)
-    x0 = plan.batch_unknowns(0)
-    assert set(x0) == {"Offset", "Angle"}
-    assert all(np.isfinite(v).all() for v in x0.values())
-
-
 def test_solve_many_mesh_guardrail_per_device(monkeypatch):
     """With a mesh the guardrail applies to the PER-DEVICE share
-    (docstring contract; VERDICT r4 weak #4 was a doc/code mismatch):
+    (the solve_many docstring's contract):
     a batch over the threshold in total but under it per device stays
     on the batched path; one over it even per device routes to solo."""
     import opt_tpu.runtime.api as api
